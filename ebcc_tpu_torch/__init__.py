@@ -1,0 +1,43 @@
+"""ebcc_tpu_torch — the PyTorch/CUDA port of the error-bounded climate-data
+compressor, for NVIDIA Hopper (H100).
+
+It sits beside ``ebcc_tpu`` (the JAX reference, which it never imports) and
+writes and reads the same ETPU streams.  This slice covers the MAX_ERROR
+intra encode and decode: the wavelet transforms run as hand-written CUDA
+kernels (``csrc/dwt97.cu``, built with ``nvcc`` at first use), the rest of
+the device work as PyTorch.  Entry points run on the CUDA card unless the
+caller passes ``device="cpu"``.
+
+Quick start::
+
+    import numpy as np
+    from ebcc_tpu_torch import CodecConfig, RESIDUAL_MAX_ERROR, encode, decode
+
+    data = np.random.rand(1, 721, 1440).astype(np.float32)
+    config = CodecConfig(dims=data.shape, base_cr=30,
+                         residual_mode=RESIDUAL_MAX_ERROR, error=0.01)
+    blob = encode(data, config)           # on the card
+    out = decode(blob)                    # max |data - out| <= 0.01
+"""
+
+__version__ = "0.1.0"
+
+from .config import (  # noqa: F401
+    BASE_NUM_PLANES,
+    RES_NUM_PLANES,
+    CodecConfig,
+    EncodeOptions,
+    RESIDUAL_LOSSLESS,
+    RESIDUAL_MAX_ERROR,
+    RESIDUAL_NONE,
+    RESIDUAL_POINTWISE_RELATIVE_ERROR,
+    RESIDUAL_RELATIVE_ERROR,
+)
+from .convert import config_from_reference, options_from_reference  # noqa: F401
+from .core.codec import (  # noqa: F401
+    decode,
+    decode_frames_device,
+    encode,
+    encode_frames_device,
+    roundtrip_frames_device,
+)
