@@ -1,15 +1,23 @@
 """Host orchestration and public entry points of the PyTorch port.
 
-Counterpart of ``ebcc_tpu/core/codec.py`` for the MAX_ERROR intra path:
-``encode``/``decode`` (host arrays in and out) and the device-resident
-``encode_frames_device``/``decode_frames_device``/``roundtrip_frames_device``
-(torch tensors in and out).  Streams are the ETPU format of
-``docs/FORMAT.md``: the two packages read each other's streams.
+Counterpart of ``ebcc_tpu/core/codec.py`` for the error-bounded intra
+path (MAX_ERROR, RELATIVE_ERROR, POINTWISE_RELATIVE_ERROR, each with
+``allow_nan``): ``encode``/``decode`` (host arrays in and out) and the
+device-resident ``encode_frames_device``/``decode_frames_device``/
+``roundtrip_frames_device`` (torch tensors out).  Streams are the ETPU
+format of ``docs/FORMAT.md``: the two packages read each other's streams.
 
 Device rule: ``encode``, ``decode`` and ``decode_frames_device`` run on the
 CUDA card unless the caller passes ``device="cpu"``, and raise when asked
 for a card that is not there.  The other ``*_frames_device`` functions run on
-the device of the tensor they are given.  Nothing falls back to the CPU.
+the device of the tensor they are given, or on ``device`` (the card by
+default) for a numpy array.  Nothing falls back to the CPU.
+
+Input gate, as in the reference: numpy inputs with NaN raise, or with
+``allow_nan`` have their NaNs filled and a mask section appended to the
+stream; Inf always raises.  Tensors are not masked (allow_nan is a
+host-input feature); the port refuses a non-finite tensor rather than ship
+a garbage stream.
 
 Modes and features the port does not cover yet raise ``NotImplementedError``
 naming the ROADMAP item that adds them.
@@ -17,6 +25,7 @@ naming the ROADMAP item that adds them.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
@@ -74,19 +83,12 @@ def _not_ported(what: str, item: str):
 
 def _check_supported(config: CodecConfig, opts: EncodeOptions,
                      n_frames: int) -> int:
-    """Raise for what this slice does not cover; returns the backend id."""
+    """Raise for what the port does not cover yet; returns the backend id."""
     mode = config.residual_mode
-    if mode in (cfg.RESIDUAL_RELATIVE_ERROR,
-                cfg.RESIDUAL_POINTWISE_RELATIVE_ERROR):
-        raise _not_ported(f"{config.residual_mode_name} mode",
-                          "RELATIVE_ERROR, pointwise and allow_nan")
     if mode == cfg.RESIDUAL_NONE:
         raise _not_ported("rate mode (RESIDUAL_NONE)", "rate mode")
     if mode == cfg.RESIDUAL_LOSSLESS:
         raise _not_ported("lossless mode", "lossless mode")
-    if config.allow_nan:
-        raise _not_ported("allow_nan", "RELATIVE_ERROR, pointwise and "
-                          "allow_nan")
     if config.temporal and n_frames > 1:
         raise _not_ported("temporal mode", "temporal mode")
     if opts.u16_upload:
@@ -104,18 +106,159 @@ def _check_routing(kind: str):
                           "CAB coder and native packer/unpacker")
 
 
-def _check_tensor(x):
-    if not isinstance(x, torch.Tensor) or x.dim() != 4:
-        raise TypeError("expected a (B, n_frames, h, w) torch tensor")
+def _check_frames_input(x):
+    if not isinstance(x, (torch.Tensor, np.ndarray)) or x.ndim != 4:
+        raise TypeError("expected a (B, n_frames, h, w) torch tensor or "
+                        "numpy array")
 
 
-def _check_finite(x):
-    """Finite-input gate (reference ``_mask_fill_check`` without
-    ``allow_nan``), for numpy arrays and tensors."""
-    ok = (bool(np.isfinite(x).all()) if isinstance(x, np.ndarray)
-          else bool(torch.isfinite(x).all()))
-    if not ok:
-        raise ValueError("NaN or Inf found in data")
+def _mask_fill_check(x_batch, allow_nan: bool):
+    """Input gate shared by every entry point -> (finite batch, masks)
+    (reference ``_mask_fill_check``, codec.py:1036-1069).
+
+    Without ``allow_nan`` NaN or Inf raises.  With it, a numpy batch's NaN
+    samples are replaced by their frame's valid-sample mean (the chunk's
+    valid mean for an all-NaN frame, then 1.0), and the (B, d0, h, w)
+    invalid bitmap is returned for the streams' mask sections; Inf always
+    raises.  A tensor is never masked.  ``masks`` is None when nothing was
+    masked."""
+    if isinstance(x_batch, torch.Tensor):
+        if not bool(torch.isfinite(x_batch).all()):
+            raise ValueError("NaN or Inf found in data (allow_nan masks "
+                             "numpy inputs only)")
+        return x_batch, None
+    if not allow_nan:
+        if not np.isfinite(x_batch).all():
+            raise ValueError("NaN or Inf found in data")
+        return x_batch, None
+    m = np.isnan(x_batch)
+    if not m.any():
+        if not np.isfinite(x_batch).all():
+            raise ValueError("Inf found in data")
+        return x_batch, None
+    if np.isinf(x_batch).any():
+        raise ValueError("Inf found in data")
+    cnt = (~m).sum(axis=(2, 3))
+    s = np.where(m, 0.0, x_batch).sum(axis=(2, 3), dtype=np.float64)
+    fill = np.divide(s, np.maximum(cnt, 1))
+    ccnt = cnt.sum(axis=1)
+    cfill = np.where(ccnt > 0, s.sum(axis=1) / np.maximum(ccnt, 1), 1.0)
+    fill = np.where(cnt > 0, fill, cfill[:, None]).astype(np.float32)
+    return np.where(m, fill[:, :, None, None], x_batch), m
+
+
+def _append_mask_sections(streams: List[bytes], masks,
+                          zstd_level: int) -> List[bytes]:
+    """Append a mask section (and set FLAG_MASKED) to each stream whose
+    chunk carries invalid samples (reference codec.py:1072-1093)."""
+    if masks is None:
+        return streams
+    out = []
+    for s, mi in zip(streams, masks):
+        if not mi.any():
+            out.append(s)
+            continue
+        packed = np.packbits(mi.reshape(-1)).tobytes()
+        ent_id = entropy.default_backend()
+        z = entropy.compress(packed, ent_id, zstd_level)
+        if len(z) >= len(packed):
+            z, ent_id = packed, entropy.BACKEND_STORE
+        out.append(stream.append_mask_section(s, ent_id, z))
+    return out
+
+
+def _apply_nan_masks_host(out: np.ndarray, nan_masks) -> np.ndarray:
+    """Restore NaN at masked positions (host arrays, in place)."""
+    if nan_masks is None:
+        return out
+    n, d0, h, w = out.shape
+    for i, p in enumerate(nan_masks):
+        if p is None:
+            continue
+        m = np.unpackbits(np.frombuffer(p, np.uint8),
+                          count=d0 * h * w).astype(bool)
+        out[i][m.reshape(d0, h, w)] = np.nan
+    return out
+
+
+def _apply_nan_masks_device(out, nan_masks):
+    """Restore NaN at masked positions of a batch on its device: upload the
+    packed bitmaps (zero for unmasked chunks), unpack the bits there and
+    apply one ``torch.where``."""
+    if nan_masks is None:
+        return out
+    n, d0, h, w = out.shape
+    sz = d0 * h * w
+    need = (sz + 7) // 8
+    packed = np.zeros((n, need), np.uint8)
+    for i, p in enumerate(nan_masks):
+        if p is not None:
+            packed[i] = np.frombuffer(p, np.uint8, count=need)
+    pk = torch.from_numpy(packed).to(out.device)
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=out.device)
+    bits = (pk[:, :, None] >> shifts) & 1
+    m = bits.reshape(n, -1)[:, :sz].reshape(out.shape).to(torch.bool)
+    return torch.where(m, float("nan"), out)
+
+
+# Float32 safety margin of the log-domain bound (reference codec.py:1275-
+# 1283): ~1 ulp of |log x| (<= 89 for a finite positive float32) on encode
+# and ~1 ulp of exp on decode, doubled.  A fixed constant, so every encode
+# route derives the same internal target.
+_LOG_MARGIN = 1.3e-7 * (89.0 + 2.0)
+
+
+def _log_transform_check(x_batch, config: CodecConfig):
+    """Pointwise-relative preprocessing -> (log-domain batch, internal
+    MAX_ERROR config); a no-op for every other mode (reference
+    codec.py:1286-1317).  Bounding the log reconstruction by
+    ``log1p(error) - _LOG_MARGIN`` bounds ``|x̂/x - 1|`` by ``error``.
+    Needs strictly positive data: numpy batches are checked and logged on
+    the host as the reference does, tensors on their device."""
+    if config.residual_mode != cfg.RESIDUAL_POINTWISE_RELATIVE_ERROR:
+        return x_batch, config
+    if not bool((x_batch > 0).all()):
+        raise ValueError(
+            "pointwise-relative mode requires strictly positive data")
+    y = (np.log(x_batch, dtype=np.float32) if isinstance(x_batch, np.ndarray)
+         else torch.log(x_batch))
+    target = float(np.log1p(config.error)) - _LOG_MARGIN
+    if target <= 0:
+        raise ValueError(
+            f"error {config.error} too small to guarantee in float32 at "
+            "this magnitude range")
+    internal = dataclasses.replace(
+        config, residual_mode=cfg.RESIDUAL_MAX_ERROR, error=target)
+    return y, internal
+
+
+def _set_log_flags(streams: List[bytes], config: CodecConfig) -> List[bytes]:
+    """Mark the streams of a log-domain encode (decoders apply exp)."""
+    if config.residual_mode != cfg.RESIDUAL_POINTWISE_RELATIVE_ERROR:
+        return streams
+    return [stream.set_flag(s, stream.FLAG_LOG_DOMAIN) for s in streams]
+
+
+def _prepare_input(x, config: CodecConfig, opts: EncodeOptions, device):
+    """Every encode entry point's gate: the modes the port covers, the
+    NaN/Inf gate and mask fill, the log transform, and the upload of a
+    numpy batch to ``device``.  -> (float32 tensor, internal config,
+    masks, backend id)."""
+    _check_frames_input(x)
+    backend = _check_supported(config, opts, x.shape[1])
+    x, masks = _mask_fill_check(x, config.allow_nan)
+    x, internal = _log_transform_check(x, config)
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(
+            resolve_device(device))
+    return x.to(torch.float32), internal, masks, backend
+
+
+def _finish_streams(streams: List[bytes], config: CodecConfig,
+                    masks) -> List[bytes]:
+    """Log-domain flag and mask sections, added to assembled streams."""
+    streams = _set_log_flags(streams, config)
+    return _append_mask_sections(streams, masks, config.zstd_level)
 
 
 # ---------------------------------------------------------------------------
@@ -420,18 +563,18 @@ def _encode_to_host(xb, config: CodecConfig, opts: EncodeOptions) -> dict:
             "exceeds the int32 sparse-index space; lower max_batch")
     with stage("enc: device"):
         out = kernels.encode_batch(
-            xb.to(torch.float32), config.error, opts.base_quantile_target,
+            xb, config.error, opts.base_quantile_target,
             base_levels=config.base_levels, res_levels=config.residual_levels,
+            relative_mode=config.residual_mode == cfg.RESIDUAL_RELATIVE_ERROR,
             use_centered=not opts.disable_mean_adjustment)
     return _fetch_encode_outputs(out, b, n_frames, hp, wp)
 
 
-def _encode_chunk_batch(x_batch, config: CodecConfig,
-                        opts: EncodeOptions) -> List[bytes]:
-    """Encode a (B, n_frames, h, w) float32 tensor of equally-shaped chunks
-    -> per-chunk stream bytes."""
+def _encode_chunk_batch(x_batch, config: CodecConfig, opts: EncodeOptions,
+                        backend: int) -> List[bytes]:
+    """Encode a (B, n_frames, h, w) float32 tensor of equally-shaped chunks,
+    already through :func:`_prepare_input`, -> per-chunk stream bytes."""
     b, n_frames, h, w = x_batch.shape
-    backend = _check_supported(config, opts, n_frames)
     out_np = _encode_to_host(x_batch, config, opts)
     return _assemble_batch(out_np, config, opts, n_frames, h, w, backend, b)
 
@@ -440,16 +583,17 @@ def encode(data: np.ndarray, config: CodecConfig,
            opts: Optional[EncodeOptions] = None, device="cuda") -> bytes:
     """Encode one logical array (= one chunk) -> ETPU stream bytes, on
     ``device`` (the CUDA card unless ``device="cpu"``)."""
-    dev = resolve_device(device)
+    resolve_device(device)
     _check_routing("encode")
     set_level_from_env()
     opts = opts or EncodeOptions.from_env()
     data = np.asarray(data, dtype=np.float32).reshape(config.dims)
     n_frames, h, w = _layout(config.dims)
     logger.info("%s", config.describe())
-    x = np.ascontiguousarray(data.reshape(1, n_frames, h, w))
-    _check_finite(x)
-    return _encode_chunk_batch(torch.from_numpy(x).to(dev), config, opts)[0]
+    x, internal, masks, backend = _prepare_input(
+        data.reshape(1, n_frames, h, w), config, opts, device)
+    return _finish_streams(
+        _encode_chunk_batch(x, internal, opts, backend), config, masks)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -457,8 +601,12 @@ def encode(data: np.ndarray, config: CodecConfig,
 # ---------------------------------------------------------------------------
 
 def _parse_streams(streams):
+    """-> (headers, (base, res) payloads, mask bitmaps): each masked
+    stream's packed invalid bitmap, None for the others, or None for the
+    whole batch when no stream is masked."""
     headers = []
     payloads = []
+    mask_payloads = []
     for s in streams:
         hd, basep, resp = stream.split_frame_stream(s)
         # Sanity caps before any allocation sized from header fields.
@@ -472,15 +620,23 @@ def _parse_streams(streams):
             raise stream.StreamError("implausible ETPU header dimensions")
         if hd.temporal:
             raise _not_ported("decoding temporal streams", "temporal mode")
-        if hd.masked or hd.log_domain:
-            raise _not_ported("decoding masked or log-domain streams",
-                              "RELATIVE_ERROR, pointwise and allow_nan")
         if hd.lossless:
             raise _not_ported("decoding lossless streams", "lossless mode")
         if hd.flags & stream.FLAG_BASE_PARTIAL:
             raise _not_ported("decoding rate-mode streams", "rate mode")
         headers.append(hd)
         payloads.append((basep, resp))
+        if hd.masked:
+            ent_id, mp = stream.split_mask_section(s, hd)
+            if ent_id not in (entropy.BACKEND_STORE, entropy.BACKEND_ZSTD):
+                raise stream.StreamError("invalid mask section backend")
+            need = (hd.n_frames * hd.height * hd.width + 7) // 8
+            raw = entropy.decompress(mp, ent_id, need)
+            if len(raw) != need:
+                raise stream.StreamError("mask section size mismatch")
+            mask_payloads.append(raw)
+        else:
+            mask_payloads.append(None)
     h0 = headers[0]
     key = (h0.n_frames, h0.height, h0.width, h0.base_levels, h0.res_levels,
            h0.base_nplanes, h0.res_nplanes)
@@ -489,17 +645,23 @@ def _parse_streams(streams):
              hd.base_nplanes, hd.res_nplanes)
         if k != key:
             raise stream.StreamError("inconsistent chunk stream shapes")
-    return headers, payloads
+    if all(m is None for m in mask_payloads):
+        mask_payloads = None
+    return headers, payloads, mask_payloads
 
 
 def _decode_streams_device(streams: List[bytes], device):
     """Decode ETPU streams sharing one shape into a ``(N, d0, h, w)`` tensor
-    on ``device``, plus host-side (const_mask, minval).
+    on ``device``, plus host-side (const_mask, const value per chunk, NaN
+    mask bitmaps).  NaNs are not restored here.
 
     The host entropy-decodes the payloads and extracts the sorted (index,
     signed kept-value) pairs; both go up in one copy each, and one scatter
-    plus the inverse transforms rebuild the batch on the device."""
-    headers, payloads = _parse_streams(streams)
+    plus the inverse transforms rebuild the batch on the device.
+    Log-domain chunks (pointwise-relative mode) get their ``exp`` as the
+    last arithmetic step, after both layers are summed, as the encoder
+    verified (reference ``_finish``, codec.py:1853-1865)."""
+    headers, payloads, nan_masks = _parse_streams(streams)
     h0 = headers[0]
     n = len(headers)
     d0, h, w = h0.n_frames, h0.height, h0.width
@@ -522,6 +684,14 @@ def _decode_streams_device(streams: List[bytes], device):
     const_mask = np.array([hd.const_field for hd in headers], bool)
     any_residual = any(hd.has_residual for hd in headers)
     plane_bytes = d0 * hp * (wp // 8)
+    # Log-domain chunks store log values: the host const fill takes their
+    # exp (reference codec.py:1682-1692).
+    log_flags = np.array([hd.log_domain for hd in headers], bool)
+    const_val = minval.copy()
+    if log_flags.any():
+        with np.errstate(over="ignore"):
+            const_val = np.where(log_flags, np.exp(const_val),
+                                 const_val).astype(np.float32)
 
     def _decompress_layer(hd, payload, which):
         """One chunk layer -> (raw bytes, kept); (None, 0) when empty."""
@@ -609,16 +779,26 @@ def _decode_streams_device(streams: List[bytes], device):
             base_levels=h0.base_levels, res_levels=h0.res_levels,
             out_hw=(h, w), has_residual=any_residual,
             grid_shape=(n, d0, hp, wp))
-    return out, const_mask, minval
+        if log_flags.any():
+            fl = to_dev(log_flags[:, None, None, None])
+            out = torch.where(fl, torch.exp(out), out)
+    return out, const_mask, const_val, nan_masks
 
 
 def _decode_streams(streams: List[bytes], device) -> np.ndarray:
     """Host-resident decode: :func:`_decode_streams_device` + fetch."""
-    out, const_mask, minval = _decode_streams_device(streams, device)
+    out, const_mask, const_val, nan_masks = _decode_streams_device(
+        streams, device)
     out = out.cpu().numpy()
     if const_mask.any():
-        out[const_mask] = minval[const_mask, None, None, None]
-    return out
+        out[const_mask] = const_val[const_mask, None, None, None]
+    return _apply_nan_masks_host(out, nan_masks)
+
+
+def _decode_device_batch(streams: List[bytes], device):
+    """Device-resident decode of one batch, NaNs restored on the device."""
+    out, _, _, nan_masks = _decode_streams_device(streams, device)
+    return _apply_nan_masks_device(out, nan_masks)
 
 
 def decode(buf: bytes, device="cuda") -> np.ndarray:
@@ -641,22 +821,24 @@ def decode(buf: bytes, device="cuda") -> np.ndarray:
 
 def encode_frames_device(x, config: CodecConfig,
                          opts: Optional[EncodeOptions] = None,
-                         max_batch: Optional[int] = None) -> List[bytes]:
+                         max_batch: Optional[int] = None,
+                         device="cuda") -> List[bytes]:
     """Device-resident encode of a ``(B, n_frames, h, w)`` float32 tensor
-    on its own device -> one ETPU stream per batch entry.
+    on its own device (or of a numpy array, uploaded to ``device``, the
+    card unless ``device="cpu"``) -> one ETPU stream per batch entry.
+    ``allow_nan`` masking applies to numpy inputs.
 
     ``max_batch`` splits the batch into sub-batches pipelined as in the
     reference: worker threads keep the device encode and fetch of later
     sub-batches in flight while earlier ones are entropy-coded."""
-    _check_tensor(x)
     opts = opts or EncodeOptions.from_env()
+    x, internal, masks, backend = _prepare_input(x, config, opts, device)
     b, n_frames, h, w = x.shape
-    backend = _check_supported(config, opts, n_frames)
-    _check_finite(x)
     if max_batch is None or b <= max_batch:
-        return _encode_chunk_batch(x, config, opts)
+        return _finish_streams(
+            _encode_chunk_batch(x, internal, opts, backend), config, masks)
     slices = [x[s:s + max_batch] for s in range(0, b, max_batch)]
-    run = lambda sl: _encode_to_host(sl, config, opts)
+    run = lambda sl: _encode_to_host(sl, internal, opts)
     depth = min(int(os.environ.get("EBCC_PIPELINE_DEPTH", "6")),
                 max(1, len(slices) - 1))
     with ThreadPoolExecutor(max_workers=depth) as fetcher, \
@@ -668,60 +850,67 @@ def encode_frames_device(x, config: CodecConfig,
             if i + depth < len(slices):
                 futs.append(fetcher.submit(run, slices[i + depth]))
             asm.append(assembler.submit(
-                _assemble_batch, out_np, config, opts, n_frames, h, w,
+                _assemble_batch, out_np, internal, opts, n_frames, h, w,
                 backend, sl.shape[0]))
         per_slice = [f.result() for f in asm]
-    return [s for ss in per_slice for s in ss]
+    return _finish_streams([s for ss in per_slice for s in ss], config,
+                           masks)
 
 
 def decode_frames_device(streams: List[bytes],
                          max_batch: Optional[int] = None, device="cuda"):
     """Device-resident decode -> ``(B, n_frames, h, w)`` tensor on
-    ``device`` (the CUDA card unless ``device="cpu"``).  ``max_batch``
-    overlaps host parsing of sub-batch k+1 with the device work of k."""
+    ``device`` (the CUDA card unless ``device="cpu"``), NaNs of masked
+    streams restored there.  ``max_batch`` overlaps host parsing of
+    sub-batch k+1 with the device work of k."""
     dev = resolve_device(device)
     if max_batch is None or len(streams) <= max_batch:
-        return _decode_streams_device(streams, dev)[0]
+        return _decode_device_batch(streams, dev)
     batches = [streams[s:s + max_batch]
                for s in range(0, len(streams), max_batch)]
     depth = min(2, len(batches))
     outs = []
     with ThreadPoolExecutor(max_workers=depth) as worker:
-        futs = [worker.submit(_decode_streams_device, bt, dev)
+        futs = [worker.submit(_decode_device_batch, bt, dev)
                 for bt in batches[:depth]]
         for i in range(len(batches)):
-            outs.append(futs[i].result()[0])
+            outs.append(futs[i].result())
             if i + depth < len(batches):
-                futs.append(worker.submit(_decode_streams_device,
+                futs.append(worker.submit(_decode_device_batch,
                                           batches[i + depth], dev))
     return torch.cat(outs, dim=0)
 
 
 def roundtrip_frames_device(x, config: CodecConfig,
                             opts: Optional[EncodeOptions] = None,
-                            max_batch: Optional[int] = None):
+                            max_batch: Optional[int] = None, device="cuda"):
     """Device-resident encode then decode of the same frames, pipelined as
     in the reference: sub-batch k's host assembly and decode run on worker
     threads while later sub-batches encode.  Streams are byte-identical to
     :func:`encode_frames_device`'s; the decoded batch stays on ``x``'s
-    device.  Returns ``(streams, decoded)``."""
-    _check_tensor(x)
+    device (on ``device`` for a numpy ``x``).  Returns ``(streams,
+    decoded)``."""
     opts = opts or EncodeOptions.from_env()
+    x, internal, masks, backend = _prepare_input(x, config, opts, device)
     b, n_frames, h, w = x.shape
-    backend = _check_supported(config, opts, n_frames)
-    _check_finite(x)
     if max_batch is None or b <= max_batch:
-        streams = _encode_chunk_batch(x, config, opts)
-        return streams, _decode_streams_device(streams, x.device)[0]
+        streams = _finish_streams(
+            _encode_chunk_batch(x, internal, opts, backend), config, masks)
+        return streams, _decode_device_batch(streams, x.device)
 
-    slices = [x[s:s + max_batch] for s in range(0, b, max_batch)]
-    run = lambda sl: _encode_to_host(sl, config, opts)
+    starts = list(range(0, b, max_batch))
+    slices = [x[s:s + max_batch] for s in starts]
+    run = lambda sl: _encode_to_host(sl, internal, opts)
 
-    def post_batch(out_np, count):
-        """Assemble one slice's streams, then start its device decode."""
-        streams = _assemble_batch(out_np, config, opts, n_frames, h, w,
+    def post_batch(i, out_np, count):
+        """Assemble slice i's streams, then start its device decode."""
+        streams = _assemble_batch(out_np, internal, opts, n_frames, h, w,
                                   backend, count)
-        return streams, _decode_streams_device(streams, x.device)[0]
+        s0 = starts[i]
+        streams = _finish_streams(
+            streams, config,
+            None if masks is None else masks[s0:s0 + count])
+        return streams, _decode_device_batch(streams, x.device)
 
     depth = min(int(os.environ.get("EBCC_PIPELINE_DEPTH", "6")),
                 max(1, len(slices) - 1))
@@ -734,7 +923,8 @@ def roundtrip_frames_device(x, config: CodecConfig,
             out_np = futs[i].result()
             if i + depth < len(slices):
                 futs.append(fetcher.submit(run, slices[i + depth]))
-            post_futs.append(poster.submit(post_batch, out_np, sl.shape[0]))
+            post_futs.append(poster.submit(post_batch, i, out_np,
+                                           sl.shape[0]))
         results = [f.result() for f in post_futs]
     streams_out = [s for streams, _ in results for s in streams]
     return streams_out, torch.cat([d for _, d in results], dim=0)

@@ -2,9 +2,10 @@
 
 Counterpart of ``ebcc_tpu/core/kernels.py`` (``_coarse_fine_search``
 :63-131, ``encode_batch``/``_encode_core`` :139-158 and :195-845 in their
-batched formulation, ``decode_batch_sparse`` :1181-1214 and
-``_decode_from_qflat`` :1523-1544).  Every step keeps the reference's
-arithmetic and decisions; what changes is the idiom:
+batched formulation, with relative targets and the fused curve sweep,
+``decode_batch_sparse`` :1181-1214 and ``_decode_from_qflat``
+:1523-1544).  Every step keeps the reference's arithmetic and decisions;
+what changes is the idiom:
 
   * PyTorch runs eagerly, so there is no ``jit``: each ``lax.map`` over
     candidate cuts is a Python loop of kernel launches, and each
@@ -17,12 +18,14 @@ arithmetic and decisions; what changes is the idiom:
     needs no counterpart of the reference's per-chunk ``lax.map`` under
     ``det`` or of ``codec._pad_min_batch``.
 
-Not ported here (see ROADMAP): relative-error targets, rate mode, temporal
-mode and ``return_internal``, the u16 upload, the fused curve kernel (K3)
-and the link-saving exchange programs of ``core/transfer.py``.
+Not ported here (see ROADMAP): rate mode, temporal mode and
+``return_internal``, the u16 upload and the link-saving exchange programs
+of ``core/transfer.py``.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -50,15 +53,18 @@ def _take(arr, idx):
 
 
 def _coarse_fine_search(q, num_planes, levels, metrics_fn, criteria,
-                        step: int = 3):
+                        step: int = 3, curve_fn=None):
     """Coarse-to-fine cut search (reference ``_coarse_fine_search``):
     evaluate the strided coarse grid of cuts (descending, ending at 0),
     then refine ``step - 1`` finer candidates above each criterion's
     coarsest feasible coarse cut.
 
     metrics_fn(spatial, cut_vec) -> tuple of (B,) metrics; criteria: fns of
-    that tuple (stacked or single) -> feasibility.  Returns
-    ``(per_criterion, coarse, coarse_cuts)`` as the reference does.
+    that tuple (stacked or single) -> feasibility.  curve_fn (optional):
+    fn(cut grid tuple) -> the stacked metric tuple of the whole coarse grid
+    from one fused pass (K3, ``dwt_hopper.curve_stats``), in place of one
+    K2 evaluation per coarse cut; refinements keep the per-cut path.
+    Returns ``(per_criterion, coarse, coarse_cuts)`` as the reference does.
     """
     b = q.shape[0]
     dev = q.device
@@ -71,9 +77,12 @@ def _coarse_fine_search(q, num_planes, levels, metrics_fn, criteria,
         spatial = dwt_hopper.idwt2d_dequant(q, cut_vec, levels)
         return metrics_fn(spatial, cut_vec)
 
-    rows = [eval_vec(torch.full((b,), int(c), dtype=torch.int32, device=dev))
-            for c in cc]
-    coarse = tuple(torch.stack(m) for m in zip(*rows))
+    if curve_fn is not None:
+        coarse = curve_fn(tuple(int(c) for c in cc))
+    else:
+        rows = [eval_vec(torch.full((b,), int(c), dtype=torch.int32,
+                                    device=dev)) for c in cc]
+        coarse = tuple(torch.stack(m) for m in zip(*rows))
 
     out = []
     for crit in criteria:
@@ -98,19 +107,25 @@ def _coarse_fine_search(q, num_planes, levels, metrics_fn, criteria,
 
 def encode_batch(x, error_target: float, base_quantile_target: float, *,
                  base_levels: int = 5, res_levels: int = 3,
-                 use_centered: bool = True):
-    """Full batched MAX_ERROR encode of ``x`` (B, D0, H, W) float32.
-    Returns a dict of device tensors (the reference's ``small`` keys plus
-    ``vals_comb``, the flat signed kept-values of both layers); stream
-    assembly happens on the host (``core.codec``)."""
+                 relative_mode: bool = False, use_centered: bool = True):
+    """Full batched error-bounded encode of ``x`` (B, D0, H, W) float32:
+    ``error_target`` is absolute, or a fraction of each chunk's range with
+    ``relative_mode``.  Returns a dict of device tensors (the reference's
+    ``small`` keys plus ``vals_comb``, the flat signed kept-values of both
+    layers); stream assembly happens on the host (``core.codec``).
+
+    ``EBCC_FUSED_CURVE=1`` (read at each call, as the reference reads it)
+    runs each coarse cut sweep as one K3 pass instead of one K2 evaluation
+    per cut."""
     minval, maxval = metrics.minmax(x)
     return _encode_core(x, minval, maxval, error_target,
                         base_quantile_target, base_levels=base_levels,
-                        res_levels=res_levels, use_centered=use_centered)
+                        res_levels=res_levels, relative_mode=relative_mode,
+                        use_centered=use_centered)
 
 
 def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
-                 base_levels, res_levels, use_centered):
+                 base_levels, res_levels, relative_mode, use_centered):
     b, d0, h, w = x.shape
     mult = 1 << max(base_levels, res_levels)
     error_target = float(np.float32(error_target))
@@ -119,7 +134,9 @@ def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
     # ---- per-chunk range & const detection ----
     const = minval == maxval
     rng = torch.where(const, 1.0, maxval - minval)
-    target = torch.full_like(minval, error_target)
+    # Absolute target per chunk (reference :206-208, REL->ABS).
+    target = ((maxval - minval) * error_target if relative_mode
+              else torch.full_like(minval, error_target))
     # Feasibility is verified at target minus the decoder allowance, unless
     # that would eat more than half the target (reference :217-220).
     base_t = torch.clamp(target, min=0.0)
@@ -144,12 +161,43 @@ def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
         qt = metrics.error_quantile(x, recon, target)
         return maxe, qt, m
 
+    # Fused curve sweep (reference :260-294): K3's per-frame rows combine
+    # into the metric tuples of the per-cut path.  Max, min and count are
+    # exact; the sum is float64 and divided once, as metrics.batch_mean
+    # does, so the mean matches it up to a double-rounding tie.  The max
+    # error is exact too: rounding is monotone, so max|err - m| =
+    # max(mx - m, m - mn).
+    n_pts = d0 * h * w
+    use_curve = os.environ.get("EBCC_FUSED_CURVE", "0") == "1"
+
+    def _combine(stats):
+        s = stats[..., 0].sum(-1)
+        mx = stats[..., 1].amax(-1).to(torch.float32)
+        mn = stats[..., 2].amin(-1).to(torch.float32)
+        bad = stats[..., 3].sum(-1).to(torch.float32)
+        m = (s / n_pts).to(torch.float32)
+        maxe = (torch.maximum(mx - m, m - mn) if use_centered
+                else torch.maximum(mx, -mn))
+        # The float32 steps of metrics.error_quantile on an exact count.
+        return maxe, 1.0 - bad / n_pts, m
+
+    base_curve = None
+    if use_curve:
+        xpad = dwt.pad_to_multiple(x, mult)[0].contiguous()
+        scale_v = rng / BASE_SCALE
+
+        def base_curve(cut_grid):
+            return _combine(dwt_hopper.curve_stats(
+                qbase, xpad, scale_v, minval, target, levels=base_levels,
+                cut_grid=cut_grid, valid_hw=orig_hw))
+
     # Two criteria share one coarse sweep: the quantile target and the full
     # bound (pure-base candidate).
     [(base_cut, _, base_m), (pure_cut, pure_feasible, pure_m)], \
         base_coarse, _cc = _coarse_fine_search(
             qbase, BASE_NUM_PLANES, base_levels, base_metrics,
-            [lambda m: m[1] >= bq_target, lambda m: m[0] <= target])
+            [lambda m: m[1] >= bq_target, lambda m: m[0] <= target],
+            curve_fn=base_curve)
 
     base_sizes = bitplane.estimated_code_bytes(
         qbase.reshape(b, d0 * hp, wp), BASE_NUM_PLANES)
@@ -171,6 +219,8 @@ def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
         rn = (residual - res_off) / _b4(rrng) * RES_SCALE
         rnp_, _ = dwt.pad_to_multiple(rn, mult)
         yres = dwt_hopper.dwt2d_transform(rnp_.contiguous(), res_levels)
+        res_pad = (dwt.pad_to_multiple(residual, mult)[0].contiguous()
+                   if use_curve else None)
         maxe_l, mean_l, cut_l, feas_l, est_l, rmax_adj_l, qres_l = (
             [], [], [], [], [], [], [])
         for f in RES_SCALE_STEPS:
@@ -190,9 +240,23 @@ def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
                         else metrics.max_abs_error(x, recon))
                 return maxe, m
 
+            res_curve = None
+            if use_curve:
+                # The reference's formulation (:373-390): the residual is
+                # the target frame, err = res - (rec * sb + rmin), which can
+                # differ from res_metrics' x - (base_recon + ...) in the
+                # last ulp.
+                sb_v = (rmax_adj - rmin) / RES_SCALE
+
+                def res_curve(cut_grid, q_f=q_f, sb_v=sb_v):
+                    maxe, _q, m = _combine(dwt_hopper.curve_stats(
+                        q_f, res_pad, sb_v, rmin, target, levels=res_levels,
+                        cut_grid=cut_grid, valid_hw=orig_hw))
+                    return maxe, m
+
             [(cut_f, feas_f, (maxe_f, mean_f))], _, _ = _coarse_fine_search(
                 q_f, RES_NUM_PLANES, res_levels, res_metrics,
-                [lambda m: m[0] <= target])
+                [lambda m: m[0] <= target], curve_fn=res_curve)
             est_f = bitplane.estimated_code_bytes(
                 q_f.reshape(b, d0 * hp, wp), RES_NUM_PLANES)
             maxe_l.append(maxe_f)

@@ -260,3 +260,38 @@ def _validate_mask_section(buf: bytes, start: int) -> int:
     return end
 
 
+def mask_section_start(buf: bytes, header: FrameHeader) -> int:
+    start = (FRAME_HEADER_SIZE + header.base_comp_size
+             + header.res_comp_size)
+    if header.temporal:
+        start = _validate_temporal_section(buf, header, start)
+    return start
+
+
+def split_mask_section(buf: bytes, header: FrameHeader):
+    """-> (entropy backend id, compressed payload bytes); call after
+    :func:`split_frame_stream` validated the stream."""
+    start = mask_section_start(buf, header)
+    (ent, _r0, _r1, _r2, csz) = struct.unpack_from(_MASK_SECTION_FMT, buf,
+                                                   start)
+    off = start + MASK_SECTION_HEADER_SIZE
+    return ent, buf[off:off + csz]
+
+
+def set_flag(stream_bytes: bytes, flag: int) -> bytes:
+    """OR a flag bit into an assembled ETPU stream (the flags byte sits at
+    a fixed offset and no header field depends on it)."""
+    b = bytearray(stream_bytes)
+    b[5] |= flag
+    return bytes(b)
+
+
+def append_mask_section(stream_bytes: bytes, entropy_id: int,
+                        payload: bytes) -> bytes:
+    """Set FLAG_MASKED on an assembled stream and append its mask section.
+    Valid on any assembled ETPU stream: the flags byte is at a fixed offset
+    and no header field covers the trailing sections."""
+    b = bytearray(set_flag(stream_bytes, FLAG_MASKED))
+    b += struct.pack(_MASK_SECTION_FMT, entropy_id, 0, 0, 0, len(payload))
+    b += payload
+    return bytes(b)

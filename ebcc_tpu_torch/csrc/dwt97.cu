@@ -1,8 +1,9 @@
 // Hand-written CUDA kernels (sm_90a) for the CDF 9/7 transforms of the codec.
 //
-// Replaces the two Pallas TPU kernels on the MAX_ERROR encode/decode path:
+// Replaces the three Pallas TPU kernels of the encode/decode path:
 //   K1  ebcc_tpu/ops/dwt_pallas.py  dwt2d_quantize_pallas  (forward + trunc)
 //   K2  ebcc_tpu/ops/dwt_pallas.py  idwt2d_dequant_pallas  (dequant + inverse)
+//   K3  ebcc_tpu/ops/dwt_pallas.py  curve_stats_pallas     (error-vs-cut curve)
 // and, with quantization switched off, the residual layer's forward
 // transform (XLA code in the reference, ebcc_tpu/core/kernels.py:348).
 //
@@ -27,6 +28,16 @@
 // launch, a frame kept in L2 or across a cluster's shared memory) are later
 // work.
 //
+// K3 runs K2's passes once per cut of its grid over one frame-batch of
+// scratch (so its memory does not grow with the grid), with the error
+// statistics fused into the last row pass: that pass writes no frame, only
+// per-row partials (float64 sum, max, min, count), and one more launch
+// reduces each (cut, frame)'s rows in a fixed order, never with atomics,
+// so the sum does not depend on the batch or the run.  Its bound: the
+// operations of n_cuts inverse transforms against one read of q and t
+// (8 B per coefficient); the TPU kernel kept the frame in VMEM across all
+// cuts, which a Hopper block cannot, so each cut costs K2's frame trips.
+//
 // Arithmetic: every lifting update is o + c * (e + e_next) with each
 // operation rounded on its own (__fadd_rn / __fmul_rn, which nvcc never
 // contracts into an FMA), exactly as the plain PyTorch version computes it,
@@ -36,6 +47,7 @@
 // allocates nothing, and returns cudaGetLastError() as an int.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -228,13 +240,14 @@ __global__ void inv_cols(const int32_t* q, const int32_t* cut, float* out,
   }
 }
 
-// Row pass of inverse level: rows [0, hl) x cols [0, wl), in place on out.
-__global__ void inv_rows(float* out, int hp, int wp, int wl) {
-  extern __shared__ float s[];
-  const size_t base = (size_t)blockIdx.y * hp * wp + (size_t)blockIdx.x * wp;
+// Loads row [0, wl) of src into s (even half scaled by 1/xi, odd by xi)
+// and runs the four inverse lifting steps in place: afterwards sample 2i is
+// s[i] and sample 2i+1 is s[h + i].
+__device__ __forceinline__ void inv_lift_row(float* s, const float* src,
+                                             int wl) {
   const int h = wl >> 1;
   for (int j = threadIdx.x; j < wl; j += blockDim.x) {
-    float v = out[base + j];
+    float v = src[j];
     s[j] = j < h ? __fmul_rn(v, kInvXi) : __fmul_rn(v, kXi);
   }
   __syncthreads();
@@ -258,9 +271,121 @@ __global__ void inv_rows(float* out, int hp, int wp, int wl) {
     s[h + i] = lift(s[h + i], kNegAlpha, s[i], s[n]);
   }
   __syncthreads();
+}
+
+// Row pass of inverse level: rows [0, hl) x cols [0, wl), in place on out.
+__global__ void inv_rows(float* out, int hp, int wp, int wl) {
+  extern __shared__ float s[];
+  const size_t base = (size_t)blockIdx.y * hp * wp + (size_t)blockIdx.x * wp;
+  const int h = wl >> 1;
+  inv_lift_row(s, out + base, wl);
   for (int i = threadIdx.x; i < h; i += blockDim.x) {
     out[base + 2 * i] = s[i];
     out[base + 2 * i + 1] = s[h + i];
+  }
+}
+
+// ------------------------------------------------------------ curve stats
+
+// Statistics of one run of samples: sum (float64), max, min, and the count
+// of |err| > target.
+struct Stats {
+  double sum;
+  float mx, mn;
+  int bad;
+};
+
+__device__ __forceinline__ Stats stats_identity() {
+  return Stats{0.0, -INFINITY, INFINITY, 0};
+}
+
+__device__ __forceinline__ void stats_merge(Stats& a, const Stats& b) {
+  a.sum += b.sum;
+  a.mx = fmaxf(a.mx, b.mx);
+  a.mn = fminf(a.mn, b.mn);
+  a.bad += b.bad;
+}
+
+// Tree reduction of one Stats per thread over a block of kRowThreads
+// threads.  The pairing is fixed, so the float64 sum comes out the same on
+// every run for the same inputs.  Thread 0 returns the block's result.
+__device__ Stats block_reduce(Stats v) {
+  __shared__ double r_sum[kRowThreads];
+  __shared__ float r_mx[kRowThreads], r_mn[kRowThreads];
+  __shared__ int r_bad[kRowThreads];
+  const int t = threadIdx.x;
+  r_sum[t] = v.sum;
+  r_mx[t] = v.mx;
+  r_mn[t] = v.mn;
+  r_bad[t] = v.bad;
+  __syncthreads();
+  for (int half = kRowThreads / 2; half > 0; half >>= 1) {
+    if (t < half) {
+      r_sum[t] += r_sum[t + half];
+      r_mx[t] = fmaxf(r_mx[t], r_mx[t + half]);
+      r_mn[t] = fminf(r_mn[t], r_mn[t + half]);
+      r_bad[t] += r_bad[t + half];
+    }
+    __syncthreads();
+  }
+  return Stats{r_sum[0], r_mx[0], r_mn[0], r_bad[0]};
+}
+
+// Last row pass of the inverse transform fused with the error statistics:
+// one block per (valid row, frame).  The row is lifted as in inv_rows, then
+// every valid column's err = t - (rec * scale + off) (each op rounded on
+// its own, as the plain version computes it) is reduced to the row's
+// partial statistics.  The reconstruction itself is never stored.
+__global__ void inv_rows_stats(const float* buf, const float* t,
+                               const float* scale, const float* off,
+                               const float* target, int d0, int hp, int wp,
+                               int vw, double* row_sum, float* row_mx,
+                               float* row_mn, int* row_bad) {
+  extern __shared__ float s[];
+  const size_t base = (size_t)blockIdx.y * hp * wp + (size_t)blockIdx.x * wp;
+  const int h = wp >> 1;
+  inv_lift_row(s, buf + base, wp);
+  const int chunk = blockIdx.y / d0;
+  const float sc = scale[chunk], of = off[chunk], tg = target[chunk];
+  Stats acc = stats_identity();
+  for (int j = threadIdx.x; j < vw; j += blockDim.x) {
+    const float rec = (j & 1) ? s[h + (j >> 1)] : s[j >> 1];
+    const float err = __fsub_rn(t[base + j],
+                                __fadd_rn(__fmul_rn(rec, sc), of));
+    acc.sum += (double)err;
+    acc.mx = fmaxf(acc.mx, err);
+    acc.mn = fminf(acc.mn, err);
+    acc.bad += fabsf(err) > tg ? 1 : 0;
+  }
+  const Stats r = block_reduce(acc);
+  if (threadIdx.x == 0) {
+    const size_t o = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    row_sum[o] = r.sum;
+    row_mx[o] = r.mx;
+    row_mn[o] = r.mn;
+    row_bad[o] = r.bad;
+  }
+}
+
+// Reduces each (cut, frame)'s vh row partials, one block each (blockIdx.x
+// the frame, blockIdx.y the cut), in a fixed order: thread t sums rows t,
+// t + 256, ... in turn, then the block tree.  out[(cut * n_frames + frame)
+// * 4 + {0,1,2,3}] = sum, max, min, count.
+__global__ void curve_reduce(const double* row_sum, const float* row_mx,
+                             const float* row_mn, const int* row_bad,
+                             int vh, double* out) {
+  const size_t cell = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const size_t r0 = cell * vh;
+  Stats acc = stats_identity();
+  for (int r = threadIdx.x; r < vh; r += blockDim.x)
+    stats_merge(acc, Stats{row_sum[r0 + r], row_mx[r0 + r], row_mn[r0 + r],
+                           row_bad[r0 + r]});
+  const Stats v = block_reduce(acc);
+  if (threadIdx.x == 0) {
+    out[cell * 4 + 0] = v.sum;
+    out[cell * 4 + 1] = (double)v.mx;
+    out[cell * 4 + 2] = (double)v.mn;
+    out[cell * 4 + 3] = (double)v.bad;
   }
 }
 
@@ -327,6 +452,53 @@ int ebcc_idwt2d_dequant(const int32_t* q, const int32_t* cut, float* out,
     if (err) return err;
   }
   return 0;
+}
+
+// Error-vs-cut statistics (K3).  For each of the n_cuts cuts in `cuts`
+// (device int32): reconstruct every frame as K2 does at that cut into
+// `scratch` (n_frames*hp*wp float32), with the last row pass computing, for
+// the valid region rows [0, vh) x cols [0, vw), err = t - (rec *
+// scale[chunk] + off[chunk]) and its row partials (row_* arrays of
+// n_cuts*n_frames*vh entries); then one launch reduces the rows of each
+// (cut, frame) into out (n_cuts, n_frames, 4) float64: sum, max, min,
+// count(|err| > target[chunk]).  chunk = frame / d0.
+int ebcc_curve_stats(const int32_t* q, const float* t, const int32_t* cuts,
+                     const float* scale, const float* off,
+                     const float* target, float* scratch, double* row_sum,
+                     float* row_mx, float* row_mn, int* row_bad, double* out,
+                     int n_cuts, int n_frames, int d0, int hp, int wp,
+                     int levels, int vh, int vw, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = set_smem((const void*)inv_cols, col_smem(hp));
+  if (err) return err;
+  const size_t per_cut = (size_t)n_frames * vh;
+  for (int k = 0; k < n_cuts; ++k) {
+    for (int lvl = levels - 1; lvl >= 0; --lvl) {
+      const int hl = hp >> lvl, wl = wp >> lvl;
+      const int hd = lvl == levels - 1 ? 0 : hl >> 1;
+      const int wd = lvl == levels - 1 ? 0 : wl >> 1;
+      // d0 = n_frames: every frame reads its cut from cuts[k].
+      inv_cols<<<dim3((wl + kTileCols - 1) / kTileCols, n_frames),
+                 dim3(kTileCols, kColRows), col_smem(hl), st>>>(
+          q, cuts + k, scratch, n_frames, hp, wp, hl, wl, hd, wd);
+      err = (int)cudaGetLastError();
+      if (err) return err;
+      if (lvl > 0) {
+        inv_rows<<<dim3(hl, n_frames), kRowThreads, wl * sizeof(float),
+                   st>>>(scratch, hp, wp, wl);
+      } else {
+        inv_rows_stats<<<dim3(vh, n_frames), kRowThreads, wp * sizeof(float),
+                         st>>>(scratch, t, scale, off, target, d0, hp, wp, vw,
+                               row_sum + k * per_cut, row_mx + k * per_cut,
+                               row_mn + k * per_cut, row_bad + k * per_cut);
+      }
+      err = (int)cudaGetLastError();
+      if (err) return err;
+    }
+  }
+  curve_reduce<<<dim3(n_frames, n_cuts), kRowThreads, 0, st>>>(
+      row_sum, row_mx, row_mn, row_bad, vh, out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

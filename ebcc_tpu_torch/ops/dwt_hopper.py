@@ -8,12 +8,15 @@
   leaves to XLA (``ebcc_tpu/core/kernels.py:348``).
 * :func:`idwt2d_dequant` replaces K2, ``idwt2d_dequant_pallas``: per-chunk
   cut dequantization fused into the multi-level inverse transform.
+* :func:`curve_stats` replaces K3, ``curve_stats_pallas``: the error
+  statistics of every cut of a grid, for the fused coarse cut sweep.
 
 The kernels are CUDA C++ for sm_90a in ``ebcc_tpu_torch/csrc/dwt97.cu``
 (design, bound and arithmetic notes there), built by ``ops/_build.py`` at
 first use.  A CUDA tensor goes to the kernel, and anything the kernel does
 not take raises; a CPU tensor goes to the plain PyTorch version beside each
-wrapper (``*_plain``), which the kernels are bit-equal to.  Each wrapper
+wrapper (``*_plain``), which the kernels are bit-equal to (K3's float64
+sum up to its summation order).  Each wrapper
 counts its kernel launches (:data:`LAUNCHES`), so a run can show that the
 main path went through the kernels.
 """
@@ -54,6 +57,7 @@ LAUNCHES = {
     "dwt2d_quantize": LaunchCounter(),
     "dwt2d_transform": LaunchCounter(),
     "idwt2d_dequant": LaunchCounter(),
+    "curve_stats": LaunchCounter(),
 }
 
 
@@ -80,6 +84,8 @@ def _lib():
             lib.ebcc_idwt2d_dequant.restype = i
             lib.ebcc_dwt97_max_rows.argtypes = []
             lib.ebcc_dwt97_max_rows.restype = i
+            lib.ebcc_curve_stats.argtypes = [p] * 12 + [i] * 8 + [p]
+            lib.ebcc_curve_stats.restype = i
             lib._ebcc_sigs = True
     return lib
 
@@ -188,3 +194,100 @@ def idwt2d_dequant(q, cut, levels: int):
     _raise_on(err, "idwt2d dequant kernel")
     LAUNCHES["idwt2d_dequant"].add()
     return out
+
+
+def _b4(v):
+    return v[:, None, None, None]
+
+
+def curve_stats_plain(q, t, scale, off, target, *, levels: int, cut_grid,
+                      valid_hw):
+    """Plain version of :func:`curve_stats`: dequant -> inverse transform
+    -> masked reductions, one cut at a time."""
+    h, w = valid_hw
+    tv = t[..., :h, :w]
+    rows = []
+    for cut in cut_grid:
+        rec = idwt2d_dequant_plain(q, int(cut), levels)[..., :h, :w]
+        err = tv - (rec * _b4(scale) + _b4(off))
+        rows.append(torch.stack([
+            err.to(torch.float64).sum(dim=(2, 3)),
+            err.amax(dim=(2, 3)).to(torch.float64),
+            err.amin(dim=(2, 3)).to(torch.float64),
+            (err.abs() > _b4(target)).sum(dim=(2, 3)).to(torch.float64),
+        ], dim=-1))
+    return torch.stack(rows)
+
+
+_CUT_GRIDS: dict = {}
+
+
+def _cut_grid_tensor(cut_grid, device):
+    """The cut grid on the card, uploaded once per (grid, device): a fresh
+    upload per call would synchronise the host with the stream."""
+    key = (tuple(int(c) for c in cut_grid), str(device))
+    with _SIG_LOCK:
+        v = _CUT_GRIDS.get(key)
+        if v is None:
+            v = torch.tensor(key[0], dtype=torch.int32, device=device)
+            _CUT_GRIDS[key] = v
+        return v
+
+
+def _chunk_vector(v, b: int, device):
+    v = torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
+    if v.shape != (b,):
+        raise ValueError(f"expected one value per chunk ({b}), got "
+                         f"{tuple(v.shape)}")
+    return v.contiguous()
+
+
+def curve_stats(q, t, scale, off, target, *, levels: int, cut_grid,
+                valid_hw):
+    """Error-vs-cut statistics curve (K3).
+
+    q: (B, D0, Hp, Wp) int32 coefficients; t: (B, D0, Hp, Wp) float32
+    target frames (the pad region is masked out); scale, off, target:
+    per-chunk (B,) float32.  For each cut of ``cut_grid`` the error is
+    ``t - (idwt(dequant(q, cut)) * scale + off)`` over the valid
+    ``valid_hw`` region.  Returns (n_cuts, B, D0, 4) float64 rows [sum, max,
+    min, count(|err| > target)]: max, min and count exact, the sum
+    accumulated in float64 in a fixed order.  CPU tensors take
+    :func:`curve_stats_plain`."""
+    if q.device.type == "cpu":
+        return curve_stats_plain(q, t, scale, off, target, levels=levels,
+                                 cut_grid=cut_grid, valid_hw=valid_hw)
+    lib = _check_frames(q, torch.int32, levels)
+    if (t.device != q.device or t.dtype != torch.float32
+            or t.shape != q.shape or not t.is_contiguous()):
+        raise ValueError("t must be a contiguous float32 tensor shaped and "
+                         "placed like q")
+    b, d0, hp, wp = q.shape
+    vh, vw = (int(v) for v in valid_hw)
+    if not (0 < vh <= hp and 0 < vw <= wp):
+        raise ValueError(f"valid region {valid_hw} outside ({hp}, {wp})")
+    cuts = _cut_grid_tensor(cut_grid, q.device)
+    n_cuts, n_frames = cuts.numel(), b * d0
+    if n_cuts == 0:
+        raise ValueError("empty cut grid")
+    scale, off, target = (_chunk_vector(v, b, q.device)
+                          for v in (scale, off, target))
+    dev = q.device
+    scratch = torch.empty(q.shape, dtype=torch.float32, device=dev)
+    n_rows = n_cuts * n_frames * vh
+    row_sum = torch.empty(n_rows, dtype=torch.float64, device=dev)
+    row_mx = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    row_mn = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    row_bad = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    out = torch.empty((n_cuts, n_frames, 4), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ebcc_curve_stats(
+            q.data_ptr(), t.data_ptr(), cuts.data_ptr(), scale.data_ptr(),
+            off.data_ptr(), target.data_ptr(), scratch.data_ptr(),
+            row_sum.data_ptr(), row_mx.data_ptr(), row_mn.data_ptr(),
+            row_bad.data_ptr(), out.data_ptr(), n_cuts, n_frames, d0, hp, wp,
+            levels, vh, vw, stream)
+    _raise_on(err, "curve stats kernel")
+    LAUNCHES["curve_stats"].add()
+    return out.reshape(n_cuts, b, d0, 4)

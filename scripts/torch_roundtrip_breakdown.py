@@ -2,7 +2,10 @@
 """Where the time goes in the PyTorch port's main path, on one CUDA card.
 
 Runs the same roundtrip as ``chip_smoke.py`` (32 frames of 721x1440 float32,
-MAX_ERROR 0.5, base_cr 30, zstd level 3, sub-batches of 4) and reports:
+MAX_ERROR 0.5, base_cr 30, zstd level 3, sub-batches of 4; with
+``--relative``, RELATIVE_ERROR 1e-2 as in the smoke's fused-curve phase;
+``EBCC_FUSED_CURVE=1`` in the environment switches the fused curve sweep
+on) and reports:
 
 * wall time and points/s of ``roundtrip_frames_device`` over ``--reps`` runs;
 * the port's stage timers (``EBCC_TIMING=2``; stages overlap across the
@@ -16,7 +19,8 @@ MAX_ERROR 0.5, base_cr 30, zstd level 3, sub-batches of 4) and reports:
 
 Run from the root of a checkout::
 
-    python3 scripts/torch_roundtrip_breakdown.py [--reps 3] [--out FILE]
+    python3 scripts/torch_roundtrip_breakdown.py [--reps 3] [--relative] \
+        [--out FILE]
 
 A summary goes to stdout, and with ``--out FILE`` the whole JSON result,
 including device time by kernel, goes to FILE.
@@ -61,6 +65,8 @@ def _busy_seconds(intervals):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--relative", action="store_true",
+                    help="RELATIVE_ERROR 1e-2 instead of MAX_ERROR 0.5")
     ap.add_argument("--out", help="write the full JSON result here")
     args = ap.parse_args()
 
@@ -79,14 +85,18 @@ def main():
         timeout=60, check=True).stdout.strip()
     n = 32
     frames = load_frames(n)
+    mode, error = ((et.RESIDUAL_RELATIVE_ERROR, 1e-2) if args.relative
+                   else (et.RESIDUAL_MAX_ERROR, 0.5))
     config = et.CodecConfig(
-        dims=(n, H, W), base_cr=30, residual_mode=et.RESIDUAL_MAX_ERROR,
-        error=0.5, chunk_dims=(1, H, W), zstd_level=3)
+        dims=(n, H, W), base_cr=30, residual_mode=mode, error=error,
+        chunk_dims=(1, H, W), zstd_level=3)
     opts = et.EncodeOptions()
     x = torch.from_numpy(frames).reshape(n, 1, H, W).cuda()
     et.roundtrip_frames_device(x[:4], config, opts, max_batch=4)  # warm-up
 
-    result = {"card": card, "frames": n, "points": x.numel()}
+    result = {"card": card, "frames": n, "points": x.numel(),
+              "mode": config.residual_mode_name, "error": error,
+              "fused_curve": os.environ.get("EBCC_FUSED_CURVE", "0") == "1"}
 
     # ---- end to end ----
     timing.reset_stats()
@@ -111,7 +121,8 @@ def main():
         out, t_dev = _sync_time(torch, lambda: codec.kernels.encode_batch(
             xb, config.error, opts.base_quantile_target,
             base_levels=config.base_levels,
-            res_levels=config.residual_levels))
+            res_levels=config.residual_levels,
+            relative_mode=args.relative))
         small, t_small = _sync_time(torch, lambda: codec._fetch_small(
             {k: v for k, v in out.items() if k != "vals_comb"}))
 

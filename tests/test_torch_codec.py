@@ -161,17 +161,19 @@ def test_truncated_stream_raises(streams):
 
 
 @pytest.mark.parametrize("change", [
-    dict(residual_mode=ebcc_tpu.RESIDUAL_RELATIVE_ERROR, error=0.01),
+    dict(temporal=True),
     dict(residual_mode=ebcc_tpu.RESIDUAL_NONE),
     dict(residual_mode=ebcc_tpu.RESIDUAL_LOSSLESS),
-    dict(allow_nan=True),
+    dict(u16_upload=True),
     dict(entropy_backend="cab"),
-], ids=["relative", "rate", "lossless", "allow_nan", "cab"])
+], ids=["temporal", "rate", "lossless", "u16_upload", "cab"])
 def test_modes_not_ported_raise(change):
-    x = np.ones((1, 64, 64), np.float32)
+    x = np.ones((2, 64, 64), np.float32)
     _, cfg = _configs(x.shape)
+    change = dict(change)
+    opts = et.EncodeOptions(u16_upload=change.pop("u16_upload", False))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        et.encode(x, dataclasses.replace(cfg, **change), device="cpu")
+        et.encode(x, dataclasses.replace(cfg, **change), opts, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["ENCODE", "DECODE"])

@@ -94,8 +94,66 @@ def test_cpu_tensors_do_not_count_as_kernel_launches():
     q = th.dwt2d_quantize(x, 3)
     th.dwt2d_transform(x, 3)
     th.idwt2d_dequant(q, 0, 3)
+    one = torch.ones(1)
+    th.curve_stats(q, x, one, one, one, levels=3, cut_grid=(3, 0),
+                   valid_hw=(60, 60))
     assert th.launch_counts() == {"dwt2d_quantize": 0, "dwt2d_transform": 0,
-                                  "idwt2d_dequant": 0}
+                                  "idwt2d_dequant": 0, "curve_stats": 0}
+
+
+def _curve_inputs(shape):
+    """The inputs of ``tests/test_dwt.py``'s K3 contract test."""
+    rng = np.random.default_rng(3)
+    b = shape[0]
+    q = rng.integers(-5000, 5000, size=shape).astype(np.int32)
+    t = rng.normal(size=shape).astype(np.float32) * 50
+    scale = rng.uniform(0.5, 2.0, b).astype(np.float32)
+    off = rng.uniform(-3, 3, b).astype(np.float32)
+    target = rng.uniform(5, 40, b).astype(np.float32)
+    return q, t, scale, off, target
+
+
+@pytest.mark.parametrize("shape,levels,hw", [
+    ((2, 1, 64, 64), 3, (50, 60)),
+    ((1, 2, 32, 64), 2, (32, 64)),
+])
+def test_curve_stats_plain_matches_pallas_interpret(shape, levels, hw):
+    """K3's plain version against ``curve_stats_pallas`` run in interpret
+    mode, at the shapes of ``tests/test_dwt.py``.  Tolerance ``tol`` is the
+    one this file holds K2 to, ``1e-5`` of the largest reconstruction
+    magnitude (XLA contracts the lifting multiply-adds into FMAs): max and
+    min agree within ``tol``; counts are equal except for samples whose
+    |err| lies within ``tol`` of the target; the Pallas kernel sums in
+    float32, so sums agree within ``tol`` times the sample count plus
+    ``1e-5`` of the sum of |err|."""
+    q, t, scale, off, target = _curve_inputs(shape)
+    cuts = tuple(range(12, -1, -3))
+    ref = np.asarray(jp.curve_stats_pallas(
+        jnp.asarray(q), jnp.asarray(t), scale, off, target, levels=levels,
+        cut_grid=cuts, valid_hw=hw, interpret=True))
+    tq, tt = torch.from_numpy(q), torch.from_numpy(t)
+    ts, to, tg = (torch.from_numpy(v) for v in (scale, off, target))
+    got = th.curve_stats(tq, tt, ts, to, tg, levels=levels, cut_grid=cuts,
+                         valid_hw=hw)
+    assert got.dtype == torch.float64
+    assert got.shape == (len(cuts),) + shape[:2] + (4,)
+    got = got.numpy()
+    h, w = hw
+    b4 = lambda v: v[:, None, None, None]
+    for k, cut in enumerate(cuts):
+        rec = th.idwt2d_dequant_plain(tq, cut, levels)[..., :h, :w]
+        err = (tt[..., :h, :w] - (rec * b4(ts) + b4(to))).numpy()
+        tol = 1e-5 * np.abs((rec * b4(ts)).numpy()).max()
+        np.testing.assert_allclose(got[k, ..., 1], ref[k, ..., 1], rtol=0,
+                                   atol=tol)
+        np.testing.assert_allclose(got[k, ..., 2], ref[k, ..., 2], rtol=0,
+                                   atol=tol)
+        near = (np.abs(np.abs(err) - target[:, None, None, None])
+                <= tol).sum(axis=(2, 3))
+        assert np.all(np.abs(got[k, ..., 3] - ref[k, ..., 3]) <= near)
+        abs_sum = np.abs(err).sum(axis=(2, 3), dtype=np.float64)
+        assert np.all(np.abs(got[k, ..., 0] - ref[k, ..., 0])
+                      <= tol * h * w + 1e-5 * abs_sum)
 
 
 def test_cut_vector_must_match_batch():
@@ -106,9 +164,11 @@ def test_cut_vector_must_match_batch():
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain(base_test_data):
-    """K1 and K2 on the card against their plain versions on the same
+    """K1, K2 and K3 on the card against their plain versions on the same
     card: bit-equal by construction (no FMA contraction in the kernels);
-    K1's integers may differ only at truncation boundaries."""
+    K1's integers may differ only at truncation boundaries; K3's float64
+    sums only by their summation order, within 1e-12 of the sum of |err|
+    bound n * max|err|."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (kernels build with nvcc)")
     dev = torch.device("cuda")
@@ -126,7 +186,15 @@ def test_cuda_kernels_match_plain(base_test_data):
         torch.testing.assert_close(th.idwt2d_dequant(qp, cut, levels),
                                    th.idwt2d_dequant_plain(qp, cut, levels),
                                    rtol=0, atol=0)
+    q, t, scale, off, target = (torch.from_numpy(v).to(dev)
+                                for v in _curve_inputs((2, 1, 64, 64)))
+    kw = dict(levels=3, cut_grid=(12, 9, 6, 3, 0), valid_hw=(50, 60))
+    got = th.curve_stats(q, t, scale, off, target, **kw)
+    want = th.curve_stats_plain(q, t, scale, off, target, **kw)
+    torch.testing.assert_close(got[..., 1:], want[..., 1:], rtol=0, atol=0)
+    n_maxabs = 50 * 60 * float(want[..., 1:3].abs().max())
+    assert float((got[..., 0] - want[..., 0]).abs().max()) <= 1e-12 * n_maxabs
     assert th.launch_counts() == {"dwt2d_quantize": 2, "dwt2d_transform": 2,
-                                  "idwt2d_dequant": 2}
+                                  "idwt2d_dequant": 2, "curve_stats": 1}
     with pytest.raises(ValueError):
         th.dwt2d_quantize(x[..., :, :100].contiguous(), 5)

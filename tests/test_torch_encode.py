@@ -22,7 +22,13 @@ The same one-unit differences perturb the residual the refinement ladder
 verifies, so a chunk may adopt a neighbouring refinement ratio
 (``RES_REFINE_RATIOS``, 1.10 apart; measured on crop256 at 0.1: 0.0946 vs
 0.0981): ``res_maxerr`` is held to a tenth of the target.
+
+The same holds with the fused curve sweep (``EBCC_FUSED_CURVE=1``) and with
+relative targets (``relative_mode``).
 """
+
+import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -34,6 +40,7 @@ from ebcc_tpu_torch.core import kernels as tk
 
 torch.set_num_threads(2)
 
+REL_ERROR = 5e-3
 FLAGS = ("base_cut", "pure_cut", "res_cut", "skip_residual", "res_feasible",
          "pure_feasible", "const", "store_cut")
 
@@ -58,21 +65,39 @@ def _batch(kind):
     return np.stack(crops)[:, None].astype(np.float32)
 
 
+@contextlib.contextmanager
+def _fused_curve(on: bool):
+    """EBCC_FUSED_CURVE set for the port's encode only."""
+    old = os.environ.get("EBCC_FUSED_CURVE")
+    os.environ["EBCC_FUSED_CURVE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["EBCC_FUSED_CURVE"]
+        else:
+            os.environ["EBCC_FUSED_CURVE"] = old
+
+
 @pytest.fixture(scope="module")
 def encoded():
-    cache = {}
+    refs, cache = {}, {}
 
-    def run(kind, error, quantile):
-        key = (kind, error, quantile)
+    def run(kind, error, quantile, fused=False, relative=False):
+        rkey = (kind, error, quantile, relative)
+        x = _batch(kind)
+        target = np.float32(1.0 - quantile)
+        if rkey not in refs:
+            ref = jk.encode_batch(x, np.float32(error), target,
+                                  relative_mode=relative)
+            refs[rkey] = {k: np.asarray(v) for k, v in ref.items()}
+        key = rkey + (fused,)
         if key not in cache:
-            x = _batch(kind)
-            target = np.float32(1.0 - quantile)
-            ref = jk.encode_batch(x, np.float32(error), target)
-            ref = {k: np.asarray(v) for k, v in ref.items()}
-            got = tk.encode_batch(torch.from_numpy(x), error, float(target))
-            got = {k: v.numpy() for k, v in got.items()}
-            cache[key] = (x, ref, got)
-        return cache[key]
+            with _fused_curve(fused):
+                got = tk.encode_batch(torch.from_numpy(x), error,
+                                      float(target), relative_mode=relative)
+            cache[key] = {k: v.numpy() for k, v in got.items()}
+        return x, refs[rkey], cache[key]
 
     return run
 
@@ -90,10 +115,9 @@ def test_decisions_equal(encoded, kind, error, quantile):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
 
 
-@CASES
-def test_error_metrics_close(encoded, kind, error, quantile):
-    x, ref, got = encoded(kind, error, quantile)
+def _assert_metrics_close(x, ref, got):
     tol = 1e-5 * np.abs(x).max()
+    error = float(ref["target_abs"].max())
     alone = ref["skip_residual"]
     np.testing.assert_allclose(got["base_maxerr"][alone],
                                ref["base_maxerr"][alone], rtol=0, atol=tol)
@@ -108,6 +132,48 @@ def test_error_metrics_close(encoded, kind, error, quantile):
     assert np.all(got["base_maxerr"][got["skip_residual"]]
                   <= got["target_abs"][got["skip_residual"]])
     assert np.all(got["res_maxerr"][active] <= got["target_abs"][active])
+
+
+@CASES
+def test_error_metrics_close(encoded, kind, error, quantile):
+    _assert_metrics_close(*encoded(kind, error, quantile))
+
+
+@CASES
+def test_fused_curve_matches_unfused_and_jax(encoded, kind, error, quantile):
+    """EBCC_FUSED_CURVE=1, with K3's plain version on the CPU: the same
+    decisions as the JAX package's encode_batch (which runs no K3 off the
+    TPU) and as the port's own unfused encode.  The coarse quantile rows
+    come from the same exact counts through the same float32 steps, so
+    they equal the unfused ones; the metrics meet the tolerances above."""
+    x, ref, got = encoded(kind, error, quantile, fused=True)
+    _, _, unfused = encoded(kind, error, quantile)
+    for k in FLAGS:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+        np.testing.assert_array_equal(got[k], unfused[k], err_msg=k)
+    np.testing.assert_array_equal(got["base_quantiles"],
+                                  unfused["base_quantiles"])
+    _assert_metrics_close(x, ref, got)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("kind,quantile", [("two_chunks", 1e-6),
+                                           ("crop256", 1e-2)])
+def test_relative_mode_matches_jax(encoded, kind, quantile, fused):
+    """relative_mode=True: the target is error * (max - min) per chunk
+    (reference kernels.py:206-208), verified at that less the decoder
+    allowance ``DECODER_EPS_REL * (max - min)``; decisions equal the JAX
+    package's, metrics within the tolerances above, with and without the
+    fused curve."""
+    x, ref, got = encoded(kind, REL_ERROR, quantile, fused=fused,
+                          relative=True)
+    rng = x.max(axis=(1, 2, 3)) - x.min(axis=(1, 2, 3))
+    np.testing.assert_allclose(got["target_abs"],
+                               (REL_ERROR - tk.DECODER_EPS_REL) * rng,
+                               rtol=1e-5)
+    for k in FLAGS:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    _assert_metrics_close(x, ref, got)
 
 
 def test_residual_layer_exercised(encoded):
