@@ -15,7 +15,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    path's shape (4, 1, 736, 1440): K1 ``dwt2d_quantize`` at 5 levels, its
    float variant ``dwt2d_transform`` at 3 levels, K2 ``idwt2d_dequant`` at 5
    and 3 levels with random per-chunk cuts; median times of each kernel and
-   its plain version.
+   its plain version (CUDA events around one call, the wrapper's host work
+   included), and from ``torch.profiler`` the CUDA kernels one call
+   launches (a 5-level K2 call may launch at most 4, a 3-level one 3) and
+   the device span of a call.  Then the same checks at the edge shapes
+   (2, 1, 96, 160), (1, 2, 224, 416), (1, 1, 32, 64) (levels shrink to 1-2
+   samples) and (4, 1, 1824, 3616) (a 1801x3600 grid, padded; timed too).
 3. Main path: 32 frames of 721x1440 float32 on the card through
    ``roundtrip_frames_device`` at MAX_ERROR 0.5, base_cr 30, zstd level 3,
    sub-batches of 4; the bound is checked on the card, the streams decode
@@ -27,7 +32,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 4. K3 ``curve_stats`` against its plain version at (4, 1, 736, 1440): the
    base call (5 levels, cuts 21, 18, ..., 0) and a residual call (3 levels,
    cuts 12, 9, ..., 0); max, min and count equal, the float64 sum within
-   its stated tolerance; median times.
+   its stated tolerance; median times and device spans.  Then both calls
+   at the edge shapes of phase 2, with a valid region short of the
+   padding.
 5. The fused-curve path: the 32 frames through ``roundtrip_frames_device``
    at RELATIVE_ERROR 1e-2 with ``EBCC_FUSED_CURVE=1``; every chunk within
    1e-2 of its range, ``curve_stats`` launched; the same roundtrip with the
@@ -36,6 +43,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    array with NaN over a fixed ~30% mask: ``encode_frames_device`` then
    ``decode_frames_device`` on the card restore every NaN and keep
    |x̂/x - 1| <= 1e-3; ``decode(..., device="cuda")`` of one stream agrees.
+7. 4 frames of 1801x3600 (a 0.1-degree grid, padded to 1824x3616) through
+   ``roundtrip_frames_device`` at MAX_ERROR 0.5; the bound is checked on the
+   card and K1 and K2 must have launched.
+
+Phases 3, 5 and 7 print the total stream bytes of their roundtrips.
 
 The line before the last is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -59,29 +71,30 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 
 
-def load_frames(n):
-    """Synthetic ERA5-shaped frames, seed 0 (same generator as bench.py)."""
+def load_frames(n, h=H, w=W):
+    """Synthetic ERA5-shaped frames of h x w, seed 0 (same generator as
+    bench.py at 721x1440)."""
     path = os.environ.get("EBCC_ERA5_FRAME")
-    if path and os.path.exists(path):
+    if (h, w) == (H, W) and path and os.path.exists(path):
         base = np.load(path).astype(np.float32)
     else:
-        yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
-        base = (260 + 25 * np.sin(yy / H * np.pi) * np.cos(xx / W * 2 * np.pi)
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        base = (260 + 25 * np.sin(yy / h * np.pi) * np.cos(xx / w * 2 * np.pi)
                 ).astype(np.float32)
     rng = np.random.default_rng(0)
     frames = []
     for i in range(n):
-        f = base + 0.3 * i + smooth_field(rng, 1.0) + rng.normal(
+        f = base + 0.3 * i + smooth_field(rng, 1.0, h, w) + rng.normal(
             scale=0.02, size=base.shape)
         frames.append(f.astype(np.float32))
     return np.stack(frames)
 
 
-def smooth_field(rng, amplitude):
-    """An H x W field interpolated bilinearly from a 24 x 46 normal grid."""
+def smooth_field(rng, amplitude, h=H, w=W):
+    """An h x w field interpolated bilinearly from a 24 x 46 normal grid."""
     coarse = rng.normal(scale=amplitude, size=(24, 46)).astype(np.float32)
-    yi = np.linspace(0, 23, H)
-    xi = np.linspace(0, 45, W)
+    yi = np.linspace(0, 23, h)
+    xi = np.linspace(0, 45, w)
     y0 = np.clip(yi.astype(int), 0, 22)
     x0 = np.clip(xi.astype(int), 0, 44)
     fy = (yi - y0)[:, None].astype(np.float32)
@@ -147,82 +160,168 @@ def ulp_gap(a, b):
     return int((ia - ib).abs().max())
 
 
-def phase_kernels(torch, dh, frames):
-    """Phase 2: every kernel against its plain version at (4, 1, 736, 1440)."""
-    from ebcc_tpu_torch.ops import dwt as dwt_ops
+EDGE_SHAPES = ((2, 1, 96, 160), (1, 2, 224, 416), (1, 1, 32, 64),
+               (4, 1, 1824, 3616))
+TALL_H, TALL_W = 1801, 3600     # a 0.1-degree grid, padded to 1824 x 3616
 
-    dev = torch.device("cuda")
-    x = torch.from_numpy(frames[:4]).reshape(4, 1, H, W).to(dev)
-    mn = x.amin(dim=(1, 2, 3), keepdim=True)
-    mx = x.amax(dim=(1, 2, 3), keepdim=True)
-    u, _ = dwt_ops.pad_to_multiple((x - mn) / (mx - mn) * 65535.0, 32)
-    u = u.contiguous()
+
+def scaled_input(torch, frames, shape):
+    """(B, D0, Hp, Wp) float32 on the card: frames padded to a multiple of
+    32 and cropped to (Hp, Wp), each scaled to [0, 65535] as the base layer
+    scales them."""
+    from ebcc_tpu_torch.ops import dwt as dwt_ops
+    b, d0, hp, wp = shape
+    x = torch.from_numpy(frames[np.arange(b * d0) % len(frames)]).cuda()
+    x, _ = dwt_ops.pad_to_multiple(x, 32)
+    x = x[:, :hp, :wp]
+    mn = x.amin(dim=(1, 2), keepdim=True)
+    mx = x.amax(dim=(1, 2), keepdim=True)
+    return ((x - mn) / (mx - mn) * 65535.0).reshape(shape).contiguous()
+
+
+def check_ints(name, got, want):
+    """K1's rule: integers equal except at truncation boundaries (at most
+    1e-5 of them, none off by more than 1).  Returns the largest gap."""
+    import torch
+    torch.cuda.synchronize()
+    diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    n_mis, worst = int((diff > 0).sum()), int(diff.max())
+    print(f"{name}: {n_mis} mismatches of {want.numel()}, largest {worst}")
+    if n_mis > 1e-5 * want.numel() or worst > 1:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return worst
+
+
+def check_floats(name, got, want):
+    """The float kernels' rule: bit-equal by construction, a gap of at most
+    4 ulp tolerated.  Returns the largest absolute difference."""
+    import torch
+    torch.cuda.synchronize()
+    gap = 0 if torch.equal(got, want) else ulp_gap(got, want)
+    print(f"{name}: bit-equal={gap == 0} largest ulp gap {gap}")
+    if gap > 4:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return float((got - want).abs().max())
+
+
+def kernel_calls(torch, dh, u, gen):
+    """The calls phase 2 makes at one shape: K1 at 5 levels, its float
+    variant at 3, K2 at 5 and 3 levels with random per-chunk cuts, each
+    beside its plain version, keyed by row name."""
+    b = u.shape[0]
+    r = (u % 255.0).contiguous()
+    q5 = dh.dwt2d_quantize_plain(u, 5)
+    q3 = dh.dwt2d_quantize_plain(r * 2.37, 3)
+    cut5, cut3 = (torch.randint(0, planes, (b,), generator=gen,
+                                dtype=torch.int32).cuda() for planes in (22, 13))
+    return {
+        "dwt2d_quantize": (lambda: dh.dwt2d_quantize(u, 5),
+                           lambda: dh.dwt2d_quantize_plain(u, 5),
+                           "K1 dwt2d_quantize L5"),
+        "dwt2d_transform": (lambda: dh.dwt2d_transform(r, 3),
+                            lambda: dh.dwt2d_transform_plain(r, 3),
+                            "dwt2d_transform L3"),
+        "idwt2d_dequant": (lambda: dh.idwt2d_dequant(q5, cut5, 5),
+                           lambda: dh.idwt2d_dequant_plain(q5, cut5, 5),
+                           f"K2 idwt2d_dequant L5 cuts {cut5.tolist()}"),
+        "idwt2d_dequant L3": (lambda: dh.idwt2d_dequant(q3, cut3, 3),
+                              lambda: dh.idwt2d_dequant_plain(q3, cut3, 3),
+                              f"K2 idwt2d_dequant L3 cuts {cut3.tolist()}"),
+    }
+
+
+def check_calls(calls, shape):
+    """Runs every call of :func:`kernel_calls` once against its plain
+    version; returns {row: largest error}."""
+    errs = {}
+    for name, (fn, plain, label) in calls.items():
+        check = check_ints if name == "dwt2d_quantize" else check_floats
+        errs[name] = check(f"{label} {shape}", fn(), plain())
+    return errs
+
+
+def frame_ops(name, hp, wp):
+    """float32 operations of one frame of a phase-2 row: the lifting, plus
+    the truncation (K1) or the ~7 dequantization ops (K2) per sample."""
+    levels = 3 if name.endswith("L3") or name == "dwt2d_transform" else 5
+    extra = {"dwt2d_quantize": 1, "dwt2d_transform": 0}.get(name, 7)
+    return lifting_ops(hp, wp, levels) + extra * hp * wp
+
+
+def device_profile(torch, fn, calls=5):
+    """(CUDA kernels one call of fn launches, median device span of a call
+    in ms: its first kernel's start to its last kernel's end), from one
+    torch.profiler session over calls + 1 calls in a row, the first left
+    out; (None, None) when it records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls + 1):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset")))
+    if not ev or len(ev) % (calls + 1):
+        return None, None
+    per = len(ev) // (calls + 1)
+    spans = [(ev[k + per - 1][1] - ev[k][0]) / 1e3
+             for k in range(per, len(ev), per)]
+    return per, statistics.median(spans)
+
+
+def phase_kernels(torch, dh, frames, tall):
+    """Phase 2: every kernel against its plain version at the main path's
+    shape (4, 1, 736, 1440), timed, with the CUDA kernels each call
+    launches; then again at every edge shape of EDGE_SHAPES."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    u = scaled_input(torch, frames, (4, 1, 736, 1440))
     b, d0, hp, wp = u.shape
     numel = u.numel()
-    gen = torch.Generator(device="cpu").manual_seed(0)
-    rows = {}
-
-    # K1: forward + truncation, 5 levels.
-    qk = dh.dwt2d_quantize(u, 5)
-    qp = dh.dwt2d_quantize_plain(u, 5)
-    torch.cuda.synchronize()
-    diff = (qk.to(torch.int64) - qp.to(torch.int64)).abs()
-    n_mis, worst = int((diff > 0).sum()), int(diff.max())
-    print(f"K1 dwt2d_quantize L5 {tuple(u.shape)}: {n_mis} mismatches of "
-          f"{numel}, largest {worst}")
-    if n_mis > 1e-5 * numel or worst > 1:
-        raise AssertionError("K1 disagrees with its plain version")
-    rows["dwt2d_quantize"] = dict(
-        fn=lambda: dh.dwt2d_quantize(u, 5),
-        plain=lambda: dh.dwt2d_quantize_plain(u, 5), err=worst,
-        nbytes=8 * numel, ops=b * d0 * (lifting_ops(hp, wp, 5) + hp * wp),
-        replaces="ebcc_tpu/ops/dwt_pallas.py:130")
-
-    # K1's kernel without truncation: the residual forward transform.
-    r = (u[:, :, :, :] % 255.0).contiguous()
-    yk = dh.dwt2d_transform(r, 3)
-    yp = dh.dwt2d_transform_plain(r, 3)
-    torch.cuda.synchronize()
-    gap = 0 if torch.equal(yk, yp) else ulp_gap(yk, yp)
-    err = float((yk - yp).abs().max())
-    print(f"dwt2d_transform L3: bit-equal={gap == 0} largest ulp gap {gap}")
-    if gap > 4:
-        raise AssertionError("dwt2d_transform disagrees with its plain version")
-    rows["dwt2d_transform"] = dict(
-        fn=lambda: dh.dwt2d_transform(r, 3),
-        plain=lambda: dh.dwt2d_transform_plain(r, 3), err=err,
-        nbytes=8 * numel, ops=b * d0 * lifting_ops(hp, wp, 3),
-        replaces="ebcc_tpu/core/kernels.py:348 (XLA, no Pallas kernel)")
-
-    # K2 at 5 levels (base) and 3 levels (residual), random per-chunk cuts.
-    q3 = dh.dwt2d_quantize_plain(r * 2.37, 3)
-    k2 = {}
-    for levels, q, planes in ((5, qp, 22), (3, q3, 13)):
-        cut = torch.randint(0, planes, (b,), generator=gen,
-                            dtype=torch.int32).to(dev)
-        ok_ = dh.idwt2d_dequant(q, cut, levels)
-        op_ = dh.idwt2d_dequant_plain(q, cut, levels)
-        torch.cuda.synchronize()
-        gap = 0 if torch.equal(ok_, op_) else ulp_gap(ok_, op_)
-        err = float((ok_ - op_).abs().max())
-        print(f"K2 idwt2d_dequant L{levels} cuts {cut.tolist()}: "
-              f"bit-equal={gap == 0} largest ulp gap {gap}")
-        if gap > 4:
-            raise AssertionError(f"K2 (L{levels}) disagrees with its plain "
-                                 "version")
-        k2[levels] = dict(
-            fn=lambda q=q, cut=cut, levels=levels: dh.idwt2d_dequant(
-                q, cut, levels),
-            plain=lambda q=q, cut=cut, levels=levels:
-                dh.idwt2d_dequant_plain(q, cut, levels),
-            err=err, nbytes=8 * numel + 4 * b,
-            ops=b * d0 * (lifting_ops(hp, wp, levels) + 7 * hp * wp),
-            replaces="ebcc_tpu/ops/dwt_pallas.py:187")
-    rows["idwt2d_dequant"] = k2[5]
-    rows["idwt2d_dequant L3"] = k2[3]
-
+    calls = kernel_calls(torch, dh, u, gen)
+    errs = check_calls(calls, tuple(u.shape))
+    replaces = {"dwt2d_quantize": "ebcc_tpu/ops/dwt_pallas.py:130",
+                "dwt2d_transform":
+                    "ebcc_tpu/core/kernels.py:348 (XLA, no Pallas kernel)",
+                "idwt2d_dequant": "ebcc_tpu/ops/dwt_pallas.py:187",
+                "idwt2d_dequant L3": "ebcc_tpu/ops/dwt_pallas.py:187"}
+    rows = {name: dict(fn=fn, plain=plain, err=errs[name],
+                       nbytes=8 * numel + (4 * b if "dequant" in name else 0),
+                       ops=b * d0 * frame_ops(name, hp, wp),
+                       replaces=replaces[name])
+            for name, (fn, plain, _) in calls.items()}
     time_rows(rows)
+    profile_rows(torch, rows)
+    for name, most in (("idwt2d_dequant", 4), ("idwt2d_dequant L3", 3)):
+        if (rows[name]["per_call"] or 0) > most:
+            raise AssertionError(f"{name} launched more than {most} kernels")
+
+    for shape in EDGE_SHAPES:
+        src = tall if shape[2] > 736 or shape[3] > 1440 else frames
+        ue = scaled_input(torch, src, shape)
+        calls_e = kernel_calls(torch, dh, ue, gen)
+        check_calls(calls_e, shape)
+        if shape[2] > 736:
+            tall_rows = {f"{k} {shape}": dict(
+                fn=fn, plain=plain, nbytes=8 * ue.numel(),
+                ops=shape[0] * shape[1] * frame_ops(k, *shape[2:]))
+                for k, (fn, plain, _) in calls_e.items()
+                if k in ("dwt2d_quantize", "idwt2d_dequant")}
+            time_rows(tall_rows)
+            profile_rows(torch, tall_rows)
     return rows
+
+
+def profile_rows(torch, rows):
+    """Adds each row's CUDA kernels per call and device span per call."""
+    for name, row in rows.items():
+        row["per_call"], row["device_ms"] = device_profile(torch, row["fn"])
+        print(f"  {name}: "
+              + (f"{row['per_call']} CUDA kernels per call, device span "
+                 f"{row['device_ms']:.4f} ms" if row["per_call"]
+                 else "device profile not measured"))
 
 
 def time_rows(rows):
@@ -239,12 +338,13 @@ BASE_GRID = tuple(range(21, -1, -3))          # 21, 18, ..., 3, 0
 RES_GRID = tuple(range(12, -1, -3))            # 12, 9, 6, 3, 0
 
 
-def phase_curve(torch, dh, frames):
+def phase_curve(torch, dh, frames, tall):
     """Phase 4: K3 ``curve_stats`` against its plain version at
     (4, 1, 736, 1440): the base call (5 levels, 8 cuts) and a residual
-    call (3 levels, 5 cuts).  Max, min and count must be equal; the float64
-    sums may differ by their summation order, within 1e-9 of n * max|err|
-    (a bound on the sum of |err| over the n valid samples)."""
+    call (3 levels, 5 cuts), timed; then both at every edge shape of
+    EDGE_SHAPES.  Max, min and count must be equal; the float64 sums may
+    differ by their summation order, within 1e-9 of n * max|err| (a bound
+    on the sum of |err| over the n valid samples)."""
     from ebcc_tpu_torch.ops import dwt as dwt_ops
 
     dev = torch.device("cuda")
@@ -284,20 +384,8 @@ def phase_curve(torch, dh, frames):
     for name, c in calls.items():
         kw = dict(levels=c["levels"], cut_grid=c["grid"], valid_hw=(H, W))
         args = (c["q"], c["t"], c["scale"], c["off"], c["target"])
-        got = dh.curve_stats(*args, **kw)
-        want = dh.curve_stats_plain(*args, **kw)
-        torch.cuda.synchronize()
-        exact = all(torch.equal(got[..., i], want[..., i]) for i in (1, 2, 3))
-        maxabs = float(torch.maximum(want[..., 1].abs(),
-                                     want[..., 2].abs()).max())
-        sum_err = float((got[..., 0] - want[..., 0]).abs().max())
-        tol = 1e-9 * n_valid * maxabs
-        print(f"K3 {name} ({c['levels']} levels, cuts {c['grid']}): max/min/count "
-              f"equal={exact}, largest sum difference {sum_err:.3e} "
-              f"(tolerance {tol:.3e})")
-        if not exact or sum_err > tol:
-            raise AssertionError(f"K3 ({name}) disagrees with its plain "
-                                 "version")
+        sum_err = check_curve(torch, dh, f"{name} {tuple(c['q'].shape)}",
+                              args, kw)
         n_cuts = len(c["grid"])
         per_cut = (lifting_ops(hp, wp, c["levels"]) + 7 * hp * wp
                    + 8 * n_valid)
@@ -308,7 +396,42 @@ def phase_curve(torch, dh, frames):
             ops=b * n_cuts * per_cut,
             replaces="ebcc_tpu/ops/dwt_pallas.py:253")
     time_rows(rows)
+    profile_rows(torch, rows)
+
+    # Edge shapes: the padded frame itself as the target, unit scale, a
+    # valid region short of the padding by 3 rows and 5 columns.
+    for shape in EDGE_SHAPES:
+        src = tall if shape[2] > 736 or shape[3] > 1440 else frames
+        ue = scaled_input(torch, src, shape)
+        re_ = (ue % 255.0).contiguous()
+        ones = torch.ones(shape[0], device=dev)
+        valid = (shape[2] - 3, shape[3] - 5)
+        for levels, grid, t, target in ((5, BASE_GRID, ue, 0.5),
+                                        (3, RES_GRID, re_, 0.05)):
+            q = dh.dwt2d_quantize_plain(t, levels)
+            check_curve(torch, dh, f"curve_stats L{levels} {shape}",
+                        (q, t, ones, 0 * ones, target * ones),
+                        dict(levels=levels, cut_grid=grid, valid_hw=valid))
     return rows
+
+
+def check_curve(torch, dh, name, args, kw):
+    """K3 against its plain version: max, min and count equal; the float64
+    sums within 1e-9 of n * max|err| (n valid samples).  Returns the
+    largest sum difference."""
+    got = dh.curve_stats(*args, **kw)
+    want = dh.curve_stats_plain(*args, **kw)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(got[..., i], want[..., i]) for i in (1, 2, 3))
+    maxabs = float(torch.maximum(want[..., 1].abs(), want[..., 2].abs()).max())
+    sum_err = float((got[..., 0] - want[..., 0]).abs().max())
+    vh, vw = kw["valid_hw"]
+    tol = 1e-9 * vh * vw * maxabs
+    print(f"K3 {name} (cuts {kw['cut_grid']}): max/min/count equal={exact}, "
+          f"largest sum difference {sum_err:.3e} (tolerance {tol:.3e})")
+    if not exact or sum_err > tol:
+        raise AssertionError(f"K3 ({name}) disagrees with its plain version")
+    return sum_err
 
 
 def phase_main_path(torch, et, dh, frames, card):
@@ -355,7 +478,7 @@ def phase_main_path(torch, et, dh, frames, card):
     print(f"main path on {card}: {n} frames {H}x{W}, roundtrip {wall:.4f} s, "
           f"{x.numel() / wall:.1f} pts/s, CR {cr:.3f} (entropy backend "
           f"{'zstd' if backend == entropy.BACKEND_ZSTD else 'STORE'}), "
-          f"max error {maxerr:.6f}")
+          f"max error {maxerr:.6f}, stream bytes {nbytes}")
     print(f"launches on the main path: {launches}")
     missing = [k for k in ("dwt2d_quantize", "dwt2d_transform",
                            "idwt2d_dequant") if launches[k] == 0]
@@ -422,7 +545,8 @@ def phase_relative(torch, et, dh, frames, card):
         print(f"relative {rel} on {card}, fused curve {fused}: {n} frames, "
               f"roundtrip {wall:.4f} s, {x.numel() / wall:.1f} pts/s, "
               f"largest error/bound {float((err_c / bound_c).max()):.6f}")
-        print(f"  launches: {launches}")
+        print(f"  launches: {launches}, stream bytes "
+              f"{sum(len(s) for s in streams)}")
         return streams, launches
 
     streams_f, launches_f = run(True)
@@ -495,6 +619,39 @@ def phase_pointwise_masked(torch, et, dh, frames, card):
         raise AssertionError(f"kernels not launched: {missing}")
 
 
+def phase_tall(torch, et, dh, tall, card):
+    """Phase 7: 4 frames of a 0.1-degree grid (1801 x 3600, padded to
+    1824 x 3616) through ``roundtrip_frames_device`` at MAX_ERROR 0.5 on
+    the card: the bound holds and K1 and K2 launched."""
+    n = tall.shape[0]
+    config = et.CodecConfig(
+        dims=(n, TALL_H, TALL_W), base_cr=30,
+        residual_mode=et.RESIDUAL_MAX_ERROR, error=0.5,
+        chunk_dims=(1, TALL_H, TALL_W), zstd_level=3)
+    x = torch.from_numpy(tall).reshape(n, 1, TALL_H, TALL_W).cuda()
+    dh.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams, dec = et.roundtrip_frames_device(x, config, et.EncodeOptions(),
+                                              max_batch=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dh.launch_counts()
+    if not (dec.shape == x.shape and bool(torch.isfinite(dec).all())):
+        raise AssertionError("tall roundtrip: bad decoded batch")
+    maxerr = float((x - dec).abs().max())
+    print(f"tall frames on {card}: {n} x {TALL_H}x{TALL_W}, roundtrip "
+          f"{wall:.4f} s (first call at this shape), max error "
+          f"{maxerr:.6f}, stream bytes {sum(len(s) for s in streams)}, "
+          f"launches {launches}")
+    if maxerr > config.error:
+        raise AssertionError(f"tall roundtrip: max error {maxerr} exceeds "
+                             f"{config.error}")
+    missing = [k for k in ("dwt2d_quantize", "idwt2d_dequant")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched: {missing}")
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     import torch
@@ -532,14 +689,15 @@ def main():
 
     # ---- phase 2: kernels against their plain versions ----
     frames = load_frames(32)
-    rows = phase_kernels(torch, dh, frames)
+    tall = load_frames(4, TALL_H, TALL_W)
+    rows = phase_kernels(torch, dh, frames, tall)
     print(f"card: {card}")
 
     # ---- phase 3: main path ----
     launches, wall, cr = phase_main_path(torch, et, dh, frames, card)
 
     # ---- phase 4: K3 against its plain version ----
-    rows.update(phase_curve(torch, dh, frames))
+    rows.update(phase_curve(torch, dh, frames, tall))
 
     # ---- phase 5: the fused-curve path, RELATIVE_ERROR ----
     launches["curve_stats"] = phase_relative(
@@ -547,6 +705,9 @@ def main():
 
     # ---- phase 6: POINTWISE_RELATIVE with allow_nan ----
     phase_pointwise_masked(torch, et, dh, frames, card)
+
+    # ---- phase 7: frames taller than the old column pass took ----
+    phase_tall(torch, et, dh, tall, card)
 
     src = "ebcc_tpu_torch/csrc/dwt97.cu"
     kernels = []

@@ -7,36 +7,58 @@
 // and, with quantization switched off, the residual layer's forward
 // transform (XLA code in the reference, ebcc_tpu/core/kernels.py:348).
 //
-// What bounds them on an H100: memory traffic.  A lifting pass does ~7 flops
-// per sample against 8 bytes moved, far below the card's ~20 flops/byte
-// float32 balance point.  The TPU kernels keep one whole frame resident in
-// VMEM; a padded 736x1440 float32 frame is 4.2 MB, which no Hopper block's
-// 227 KB of shared memory can hold.  So each level runs as two launches:
-//   * a row pass: one block per (row, frame) loads the whole row (<= 8 KB)
-//     into shared memory, runs the four lifting steps in place separated by
-//     __syncthreads(), scales, and writes it back deinterleaved (forward) or
-//     interleaved (inverse);
-//   * a column pass: one block per (32-column tile, frame) loads the tile of
-//     whole columns (32 x rows floats, 94 KB at 736 rows) with loads
-//     coalesced across the 32 columns, lifts along the rows, writes back.
-// Between passes the frame goes through device memory, which the 50 MB L2
-// mostly absorbs at these sizes.  Frames never share a block, so a frame's
-// result does not depend on the batch it rides in.  K2 fuses the
-// dequantization into the loads of its first touch of every coefficient; K1
-// fuses the truncation into the stores of the last pass that writes each
-// coefficient.  Faster designs (cp.async/TMA halo tiles, several levels per
-// launch, a frame kept in L2 or across a cluster's shared memory) are later
-// work.
+// What bounds them on an H100: memory traffic in principle.  A lifting
+// pass does ~7 flops per sample against 8 bytes moved, far below the
+// card's ~20 flops/byte float32 balance point, so a call's bound is its
+// bytes: 8 B per coefficient at 3.35 TB/s, 0.0101 ms at (4, 1, 736, 1440).
+// The TPU kernels keep one whole frame resident in VMEM; a padded 736x1440
+// float32 frame is 4.2 MB, which no Hopper block's 227 KB of shared memory
+// can hold.  So each level of a frame is cut into tiles, and one launch per
+// level runs both 1-D passes of every tile:
+//   * a tile is 64x64 samples of the level's output (2*kTI rows, 2*kTJ
+//     columns).  Its block of 288 threads copies the tile's footprint in
+//     the four subbands (kTI + 2*kHalo samples of each half along each
+//     axis, 72x72 floats at an odd pitch, 20.5 KB of static shared memory
+//     whatever the frame's size) with cp.async, runs the column and the row
+//     lifting in shared memory, and writes the tile once.  The level
+//     crosses device memory once, and frames of any padded height or width
+//     are taken (only the batch is bounded, by the grid's 65535 frames);
+//   * the halo: the four lifting steps reach 2 samples of each half on each
+//     side (worked out at inv_tile / fwd_tile).  A tile computes its halo
+//     again with the same operations in the same order as its neighbour, and
+//     replicates samples only at the level's true edges, so every output is
+//     bit-equal to the plain version;
+//   * a pass gives every thread a segment of 8 samples of each half of one
+//     line (12 with the halo), lifted through all four steps in registers:
+//     all 288 threads work, with one barrier between the segments' loads and
+//     their stores (line segments, below);
+//   * the coarse levels whose whole block fits in one block's shared memory
+//     (two buffers of (hp>>l) x (wp>>l) floats, at most 227 KB) run in one
+//     launch, one 1024-thread block per frame keeping the block resident
+//     across those levels: the TPU kernel's frame-resident design, which
+//     fits on Hopper only there.  At (736, 1440) that is levels 3 and 4, so a
+//     5-level call is 4 launches (coarse + levels 2, 1, 0) and a 3-level call
+//     3.  Which branch runs does not change any result.
+// Intermediate levels ping-pong between two compact scratch planes (level l
+// of a frame is (hp>>l) x (wp>>l)): a tiled level cannot work in place,
+// since its tiles read the neighbours' footprints.  Frames never share a
+// block, so a frame's result does not depend on the batch it rides in.  K2
+// dequantizes on load every coefficient it reads from the integers; K1
+// truncates in the store of every coefficient no later level rewrites.
 //
-// K3 runs K2's passes once per cut of its grid over one frame-batch of
+// What holds them back (times in PERF.md): a tile block's phases (copy,
+// two passes, store) run in lockstep with the other blocks of its wave, so
+// the memory idles while they lift; the coarse kernel runs on one SM per
+// frame.
+//
+// K3 runs K2's levels once per cut of its grid over one frame-batch of
 // scratch (so its memory does not grow with the grid), with the error
-// statistics fused into the last row pass: that pass writes no frame, only
-// per-row partials (float64 sum, max, min, count), and one more launch
-// reduces each (cut, frame)'s rows in a fixed order, never with atomics,
+// statistics fused into the level-0 tile kernel: it writes no frame, only
+// per-tile partials (float64 sum, max, min, count), and one more launch
+// reduces each (cut, frame)'s tiles in a fixed order, never with atomics,
 // so the sum does not depend on the batch or the run.  Its bound: the
 // operations of n_cuts inverse transforms against one read of q and t
-// (8 B per coefficient); the TPU kernel kept the frame in VMEM across all
-// cuts, which a Hopper block cannot, so each cut costs K2's frame trips.
+// (8 B per coefficient); each cut still costs one K2 call's frame trips.
 //
 // Arithmetic: every lifting update is o + c * (e + e_next) with each
 // operation rounded on its own (__fadd_rn / __fmul_rn, which nvcc never
@@ -65,12 +87,53 @@ __constant__ float kNegDelta = (float)(-0.44355068522);
 __constant__ float kXi = (float)(1.149604398);
 __constant__ float kInvXi = (float)(1.0 / 1.149604398);
 
-constexpr int kRowThreads = 256;
-constexpr int kTileCols = 32;
-constexpr int kColRows = 8;  // blockDim.y of the column pass
+constexpr int kTI = 32;               // a tile's samples of one half, rows
+constexpr int kTJ = 32;               // ... and columns
+constexpr int kHalo = 2;              // reach of the four lifting steps
+constexpr int kLI = kTI + 2 * kHalo;  // window slots of one half, rows
+constexpr int kLJ = kTJ + 2 * kHalo;  // ... and columns
+constexpr int kWin = 2 * kLJ;         // window columns: low half, high half
+constexpr int kPitch = kWin + 1;      // odd: row lines hit distinct banks
+constexpr int kTileFloats = 2 * kLI * kPitch;
+constexpr int kRowsY = 4;             // blockDim = (kWin, kRowsY)
+constexpr int kTileThreads = kWin * kRowsY;
+constexpr int kPerThread = kLI / kRowsY;  // window rows a thread loads
+constexpr int kOutPerThread = (4 * kTI * kTJ + kTileThreads - 1) / kTileThreads;
+static_assert(kLI % kRowsY == 0 && kLI == kLJ, "tile shape");
+constexpr int kSeg = 8;               // samples of each half a thread lifts
+constexpr int kSegIn = kSeg + 2 * kHalo;  // ... and reads
+constexpr int kSegs = kTI / kSeg;     // segments per window line
+static_assert(kWin * kRowsY == 2 * kLI * kSegs, "one segment per thread");
+constexpr int kReduceThreads = 256;   // curve_reduce
+constexpr int kCoarseSmem = 227 * 1024;  // a block's dynamic shared memory
+constexpr int kCoarseSide = 32;       // blockDim = (32, 32)
+
+// A stack of per-frame float planes: frame f, row r, column c is at
+// p[f * frame + r * pitch + c].
+struct Plane {
+  float* p;
+  size_t frame;
+  int pitch;
+};
 
 __device__ __forceinline__ float lift(float x, float c, float a, float b) {
   return __fadd_rn(x, __fmul_rn(c, __fadd_rn(a, b)));
+}
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// Asynchronous 4-byte copy from device to shared memory (no register
+// round trip, no alignment needed); cp_async_wait waits for all of the
+// thread's copies.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Dequantize one coefficient at `cut` (ebcc_tpu/ops/dwt_pallas.py:164-172):
@@ -88,204 +151,134 @@ __device__ __forceinline__ float dequant(int32_t q, int cut) {
   return q < 0 ? -rec : rec;
 }
 
-// ---------------------------------------------------------------- forward
+// --------------------------------------------------------- line segments
+//
+// A thread lifts kSeg consecutive samples of each half of one line at
+// once, in registers.  It reads the line's slots [first, first + kSegIn)
+// of both halves (kHalo on each side of its own kSeg), runs the four
+// lifting steps on them, and writes back its own slots [first + kHalo,
+// first + kHalo + kSeg).  The halo is the one worked out at inv_tile /
+// fwd_tile, so the written slots are exact.  Register slot kb holds the
+// level's first sample and ke its last (out of [0, kSegIn) when the
+// segment does not reach that edge): there the neighbour outside the level
+// is the sample itself (edge replication, shift_prev / shift_next in
+// dwt_pallas.py:46-50).  Registers past an edge hold clamped copies that
+// no written slot depends on.
+struct Seg {
+  float e[kSegIn], o[kSegIn];
+};
 
-// Forward lifting of the 2*h interleaved samples s[0..2h) in place; the
-// caller syncs before, the last step syncs after.
-__device__ __forceinline__ void fwd_lift_row(float* s, int h) {
-  for (int i = threadIdx.x; i < h; i += blockDim.x) {
-    int n = i + 1 < h ? i + 1 : h - 1;
-    s[2 * i + 1] = lift(s[2 * i + 1], kAlpha, s[2 * i], s[2 * n]);
+// e[k] = lift(e[k], c, o[k-1], o[k]).  kb <= kHalo: a segment starts at
+// most kHalo slots before the level.
+__device__ __forceinline__ void seg_even(Seg& s, int kb, float c) {
+#pragma unroll
+  for (int k = 0; k < kSegIn; ++k)
+    s.e[k] = lift(s.e[k], c,
+                  (k == 0 || (k <= kHalo && k == kb)) ? s.o[k] : s.o[k - 1],
+                  s.o[k]);
+}
+
+// o[k] = lift(o[k], c, e[k], e[k+1]); kEdge: the level's last sample may
+// lie inside the segment, at ke.
+template <bool kEdge>
+__device__ __forceinline__ void seg_odd(Seg& s, int ke, float c) {
+#pragma unroll
+  for (int k = 0; k < kSegIn; ++k)
+    s.o[k] = lift(s.o[k], c, s.e[k],
+                  (k == kSegIn - 1 || (kEdge && k == ke)) ? s.e[k]
+                                                          : s.e[k + 1]);
+}
+
+// kInverse: the inverse steps (-delta on even, -gamma on odd, -beta on
+// even, -alpha on odd), then both halves scaled by sc.  Else the forward
+// steps (alpha on odd, beta on even, gamma on odd, delta on even), then
+// low * xi and high / xi.
+template <bool kInverse, bool kEdge>
+__device__ __forceinline__ void seg_steps(Seg& s, int kb, int ke, float sc) {
+  if (kInverse) {
+    seg_even(s, kb, kNegDelta);
+    seg_odd<kEdge>(s, ke, kNegGamma);
+    seg_even(s, kb, kNegBeta);
+    seg_odd<kEdge>(s, ke, kNegAlpha);
+  } else {
+    seg_odd<kEdge>(s, ke, kAlpha);
+    seg_even(s, kb, kBeta);
+    seg_odd<kEdge>(s, ke, kGamma);
+    seg_even(s, kb, kDelta);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < h; i += blockDim.x) {
-    int p = i > 0 ? i - 1 : 0;
-    s[2 * i] = lift(s[2 * i], kBeta, s[2 * p + 1], s[2 * i + 1]);
+  const float sl = kInverse ? sc : kXi, sh = kInverse ? sc : kInvXi;
+#pragma unroll
+  for (int k = 0; k < kSegIn; ++k) {
+    s.e[k] = __fmul_rn(s.e[k], sl);
+    s.o[k] = __fmul_rn(s.o[k], sh);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < h; i += blockDim.x) {
-    int n = i + 1 < h ? i + 1 : h - 1;
-    s[2 * i + 1] = lift(s[2 * i + 1], kGamma, s[2 * i], s[2 * n]);
+}
+
+// Lifts a segment whose register slot 0 is the level's sample `base` of
+// n per half.
+template <bool kInverse>
+__device__ __forceinline__ void seg_lift(Seg& s, int base, int n, float sc) {
+  const int kb = base <= 0 ? -base : -1, ke = n - 1 - base;
+  if (ke >= kSegIn - 1)
+    seg_steps<kInverse, false>(s, kb, ke, sc);
+  else
+    seg_steps<kInverse, true>(s, kb, ke, sc);
+}
+
+// Slots first + k of a line (clamped into [0, n) when kClamp): low half at
+// lo[k * st], high half at hi[k * st].
+template <bool kClamp>
+__device__ __forceinline__ void seg_load(Seg& s, const float* lo,
+                                         const float* hi, int st, int first,
+                                         int n) {
+#pragma unroll
+  for (int k = 0; k < kSegIn; ++k) {
+    const int j = (kClamp ? clampi(first + k, 0, n - 1) : first + k) * st;
+    s.e[k] = lo[j];
+    s.o[k] = hi[j];
   }
+}
+
+// The segment's own slots first + kHalo + k (those < n when kClamp) to
+// lo / hi.
+template <bool kClamp>
+__device__ __forceinline__ void seg_store(const Seg& s, float* lo, float* hi,
+                                          int st, int first, int n) {
+#pragma unroll
+  for (int k = kHalo; k < kHalo + kSeg; ++k) {
+    if (kClamp && first + k >= n) break;
+    lo[(first + k) * st] = s.e[k];
+    hi[(first + k) * st] = s.o[k];
+  }
+}
+
+// One in-place pass of a tile: every active thread lifts one segment of
+// one window line, the line's slots at lo[k * st] and hi[k * st], its
+// register slot 0 at window slot `first` (a window's slots need no
+// clamping), global index base + first.  The barrier between the loads and
+// the stores keeps every read ahead of the writes of the overlapping
+// neighbour segments.
+template <bool kInverse>
+__device__ __forceinline__ void tile_pass(bool active, float* lo, float* hi,
+                                          int st, int first, int base, int n,
+                                          float sc) {
+  Seg g;
+  if (active) seg_load<false>(g, lo, hi, st, first, kLI);
   __syncthreads();
-  for (int i = threadIdx.x; i < h; i += blockDim.x) {
-    int p = i > 0 ? i - 1 : 0;
-    s[2 * i] = lift(s[2 * i], kDelta, s[2 * p + 1], s[2 * i + 1]);
+  if (active) {
+    seg_lift<kInverse>(g, base + first, n, sc);
+    seg_store<false>(g, lo, hi, st, first, kLI);
   }
   __syncthreads();
 }
 
-// Row pass of forward level: rows [0, hl) x cols [0, wl) of each frame.
-// src and dst may alias (a block owns its whole row).
-__global__ void fwd_rows(const float* src, float* dst, int hp, int wp, int wl) {
-  extern __shared__ float s[];
-  const size_t base = (size_t)blockIdx.y * hp * wp + (size_t)blockIdx.x * wp;
-  const int h = wl >> 1;
-  for (int j = threadIdx.x; j < wl; j += blockDim.x) s[j] = src[base + j];
-  __syncthreads();
-  fwd_lift_row(s, h);
-  for (int i = threadIdx.x; i < h; i += blockDim.x) {
-    dst[base + i] = __fmul_rn(s[2 * i], kXi);
-    dst[base + h + i] = __fmul_rn(s[2 * i + 1], kInvXi);
-  }
-}
-
-// Column pass of forward level on a 32-column tile of rows [0, hl).  A
-// coefficient this level writes is final unless it lies in the next level's
-// LL block (rows < hl/2, cols < wl/2, not the last level): final ones go to
-// q truncated toward zero when q is given, everything else to buf.
-__global__ void fwd_cols(float* buf, int32_t* q, int hp, int wp, int hl,
-                         int wl, int last) {
-  extern __shared__ float s[];
-  const int c = threadIdx.x;
-  const int col = blockIdx.x * kTileCols + c;
-  const bool live = col < wl;
-  const size_t frame = (size_t)blockIdx.y * hp * wp;
-  for (int r = threadIdx.y; r < hl; r += blockDim.y)
-    if (live) s[r * kTileCols + c] = buf[frame + (size_t)r * wp + col];
-  __syncthreads();
-  const int h = hl >> 1;
-  // Lift each column: thread (c, y) walks the column's pairs y, y+8, ...
-  float* sc = s + c;
-  for (int step = 0; step < 4; ++step) {
-    const bool odd_step = (step & 1) == 0;  // steps 0, 2 update odd samples
-    const float coef = step == 0 ? kAlpha : step == 1 ? kBeta
-                     : step == 2 ? kGamma : kDelta;
-    if (live) {
-      for (int i = threadIdx.y; i < h; i += blockDim.y) {
-        if (odd_step) {
-          int n = i + 1 < h ? i + 1 : h - 1;
-          sc[(2 * i + 1) * kTileCols] =
-              lift(sc[(2 * i + 1) * kTileCols], coef, sc[2 * i * kTileCols],
-                   sc[2 * n * kTileCols]);
-        } else {
-          int p = i > 0 ? i - 1 : 0;
-          sc[2 * i * kTileCols] =
-              lift(sc[2 * i * kTileCols], coef, sc[(2 * p + 1) * kTileCols],
-                   sc[(2 * i + 1) * kTileCols]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (!live) return;
-  const bool col_in_next = col < (wl >> 1);
-  for (int r = threadIdx.y; r < hl; r += blockDim.y) {
-    // output row r holds even sample r (r < h) or odd sample r - h
-    float v = r < h ? __fmul_rn(sc[2 * r * kTileCols], kXi)
-                    : __fmul_rn(sc[(2 * (r - h) + 1) * kTileCols], kInvXi);
-    const size_t o = frame + (size_t)r * wp + col;
-    const bool final_here = last || r >= h || !col_in_next;
-    if (q != nullptr && final_here)
-      q[o] = (int32_t)truncf(v);
-    else
-      buf[o] = v;
-  }
-}
-
-// ---------------------------------------------------------------- inverse
-
-// Column pass of inverse level l on a 32-column tile of rows [0, hl).
-// Coefficients inside the already reconstructed block (rows < hd, cols < wd)
-// are read from out; all others are read from q and dequantized at the
-// frame's chunk cut.
-__global__ void inv_cols(const int32_t* q, const int32_t* cut, float* out,
-                         int d0, int hp, int wp, int hl, int wl, int hd,
-                         int wd) {
-  extern __shared__ float s[];
-  const int c = threadIdx.x;
-  const int col = blockIdx.x * kTileCols + c;
-  const bool live = col < wl;
-  const size_t frame = (size_t)blockIdx.y * hp * wp;
-  const int fcut = cut[blockIdx.y / d0];
-  const int h = hl >> 1;
-  float* sc = s + c;
-  if (live) {
-    for (int r = threadIdx.y; r < hl; r += blockDim.y) {
-      const size_t o = frame + (size_t)r * wp + col;
-      float v = (r < hd && col < wd) ? out[o] : dequant(q[o], fcut);
-      // rows [0, h) are even samples, [h, hl) odd; scale on load
-      sc[r * kTileCols] = r < h ? __fmul_rn(v, kInvXi) : __fmul_rn(v, kXi);
-    }
-  }
-  __syncthreads();
-  // even at sc[i], odd at sc[(h + i)] (units of kTileCols)
-  for (int step = 0; step < 4; ++step) {
-    const bool even_step = (step & 1) == 0;  // steps 0, 2 update even
-    const float coef = step == 0 ? kNegDelta : step == 1 ? kNegGamma
-                     : step == 2 ? kNegBeta : kNegAlpha;
-    if (live) {
-      for (int i = threadIdx.y; i < h; i += blockDim.y) {
-        if (even_step) {
-          int p = i > 0 ? i - 1 : 0;
-          sc[i * kTileCols] = lift(sc[i * kTileCols], coef,
-                                   sc[(h + p) * kTileCols],
-                                   sc[(h + i) * kTileCols]);
-        } else {
-          int n = i + 1 < h ? i + 1 : h - 1;
-          sc[(h + i) * kTileCols] = lift(sc[(h + i) * kTileCols], coef,
-                                         sc[i * kTileCols],
-                                         sc[n * kTileCols]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (!live) return;
-  for (int r = threadIdx.y; r < hl; r += blockDim.y) {
-    // output row r = even sample r/2 (r even) or odd sample r/2 (r odd)
-    const int i = r >> 1;
-    out[frame + (size_t)r * wp + col] =
-        (r & 1) ? sc[(h + i) * kTileCols] : sc[i * kTileCols];
-  }
-}
-
-// Loads row [0, wl) of src into s (even half scaled by 1/xi, odd by xi)
-// and runs the four inverse lifting steps in place: afterwards sample 2i is
-// s[i] and sample 2i+1 is s[h + i].
-__device__ __forceinline__ void inv_lift_row(float* s, const float* src,
-                                             int wl) {
-  const int h = wl >> 1;
-  for (int j = threadIdx.x; j < wl; j += blockDim.x) {
-    float v = src[j];
-    s[j] = j < h ? __fmul_rn(v, kInvXi) : __fmul_rn(v, kXi);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < h; i += blockDim.x) {
-    int p = i > 0 ? i - 1 : 0;
-    s[i] = lift(s[i], kNegDelta, s[h + p], s[h + i]);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < h; i += blockDim.x) {
-    int n = i + 1 < h ? i + 1 : h - 1;
-    s[h + i] = lift(s[h + i], kNegGamma, s[i], s[n]);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < h; i += blockDim.x) {
-    int p = i > 0 ? i - 1 : 0;
-    s[i] = lift(s[i], kNegBeta, s[h + p], s[h + i]);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < h; i += blockDim.x) {
-    int n = i + 1 < h ? i + 1 : h - 1;
-    s[h + i] = lift(s[h + i], kNegAlpha, s[i], s[n]);
-  }
-  __syncthreads();
-}
-
-// Row pass of inverse level: rows [0, hl) x cols [0, wl), in place on out.
-__global__ void inv_rows(float* out, int hp, int wp, int wl) {
-  extern __shared__ float s[];
-  const size_t base = (size_t)blockIdx.y * hp * wp + (size_t)blockIdx.x * wp;
-  const int h = wl >> 1;
-  inv_lift_row(s, out + base, wl);
-  for (int i = threadIdx.x; i < h; i += blockDim.x) {
-    out[base + 2 * i] = s[i];
-    out[base + 2 * i + 1] = s[h + i];
-  }
-}
-
-// ------------------------------------------------------------ curve stats
+// ------------------------------------------------------------------ tiles
+//
+// A tile window holds, along each axis, slots k = 0..kL-1 of both halves
+// (low = even samples, high = odd samples) for the global half-indices
+// g = base + k, base = tile start - kHalo: window row hr * kLI + k, window
+// column hc * kLJ + k.  Samples outside the level are copied clamped to its
+// edge; no output reads what is computed from them.
 
 // Statistics of one run of samples: sum (float64), max, min, and the count
 // of |err| > target.
@@ -306,21 +299,25 @@ __device__ __forceinline__ void stats_merge(Stats& a, const Stats& b) {
   a.bad += b.bad;
 }
 
-// Tree reduction of one Stats per thread over a block of kRowThreads
-// threads.  The pairing is fixed, so the float64 sum comes out the same on
-// every run for the same inputs.  Thread 0 returns the block's result.
-__device__ Stats block_reduce(Stats v) {
-  __shared__ double r_sum[kRowThreads];
-  __shared__ float r_mx[kRowThreads], r_mn[kRowThreads];
-  __shared__ int r_bad[kRowThreads];
-  const int t = threadIdx.x;
+// Reduction of one Stats per thread over a block of kN threads (thread t
+// = its linear index): threads [P, kN) fold into [0, kN - P), P the largest
+// power of two <= kN, then a tree.  The pairing is fixed, so the float64
+// sum comes out the same on every run for the same inputs.  Every thread
+// returns the block's result.
+template <int kN>
+__device__ Stats block_reduce(Stats v, int t) {
+  constexpr int kP = kN >= 512 ? 512 : kN >= 256 ? 256 : 128;
+  static_assert(kP <= kN && kN < 2 * kP, "block size");
+  __shared__ double r_sum[kN];
+  __shared__ float r_mx[kN], r_mn[kN];
+  __shared__ int r_bad[kN];
   r_sum[t] = v.sum;
   r_mx[t] = v.mx;
   r_mn[t] = v.mn;
   r_bad[t] = v.bad;
   __syncthreads();
-  for (int half = kRowThreads / 2; half > 0; half >>= 1) {
-    if (t < half) {
+  for (int half = kP; half > 0; half >>= 1) {
+    if (t < half && t + half < (half == kP ? kN : 2 * half)) {
       r_sum[t] += r_sum[t + half];
       r_mx[t] = fmaxf(r_mx[t], r_mx[t + half]);
       r_mn[t] = fminf(r_mn[t], r_mn[t + half]);
@@ -331,56 +328,360 @@ __device__ Stats block_reduce(Stats v) {
   return Stats{r_sum[0], r_mx[0], r_mn[0], r_bad[0]};
 }
 
-// Last row pass of the inverse transform fused with the error statistics:
-// one block per (valid row, frame).  The row is lifted as in inv_rows, then
-// every valid column's err = t - (rec * scale + off) (each op rounded on
-// its own, as the plain version computes it) is reduced to the row's
-// partial statistics.  The reconstruction itself is never stored.
-__global__ void inv_rows_stats(const float* buf, const float* t,
-                               const float* scale, const float* off,
-                               const float* target, int d0, int hp, int wp,
-                               int vw, double* row_sum, float* row_mx,
-                               float* row_mn, int* row_bad) {
-  extern __shared__ float s[];
-  const size_t base = (size_t)blockIdx.y * hp * wp + (size_t)blockIdx.x * wp;
-  const int h = wp >> 1;
-  inv_lift_row(s, buf + base, wp);
-  const int chunk = blockIdx.y / d0;
-  const float sc = scale[chunk], of = off[chunk], tg = target[chunk];
-  Stats acc = stats_identity();
-  for (int j = threadIdx.x; j < vw; j += blockDim.x) {
-    const float rec = (j & 1) ? s[h + (j >> 1)] : s[j >> 1];
-    const float err = __fsub_rn(t[base + j],
-                                __fadd_rn(__fmul_rn(rec, sc), of));
-    acc.sum += (double)err;
-    acc.mx = fmaxf(acc.mx, err);
-    acc.mn = fminf(acc.mn, err);
-    acc.bad += fabsf(err) > tg ? 1 : 0;
+// The error statistics of one tile, for K3 (kStats of inv_tile).
+struct StatsArgs {
+  const float* t;  // (n_frames, hp, wp) targets
+  const float* scale;
+  const float* off;
+  const float* target;
+  int d0, vh, vw;
+  double* sum;  // one partial per (frame, tile)
+  float* mx;
+  float* mn;
+  int* bad;
+};
+
+// Inverse level l of a (hl, wl) block, one block of (kWin, kRowsY) threads
+// per 64x64 output tile (blockIdx.x = tile, n_tj tiles per tile row;
+// blockIdx.y = frame).
+//
+// Halo.  Output rows 2i, 2i+1 for i in [i0, i0 + kTI) need, after the four
+// steps (-delta on even, -gamma on odd, -beta on even, -alpha on odd), even
+// samples of step 3 on [i0, i0+kTI] and odd of step 4 on [i0, i0+kTI);
+// hence odd of step 2 on [i0-1, i0+kTI], even of step 1 on [i0-1,
+// i0+kTI+1], and inputs on [i0-2, i0+kTI+1] of both halves: kHalo = 2 on
+// each side.  The same holds along the columns.
+//
+// Inputs: the LL quadrant from `ll` (the previous level's output) unless
+// ll.p is null (the coarsest level), the other three from q dequantized at
+// the frame's cut, cut[frame / cut_d0].  The column pass lifts all kWin
+// window columns and scales them for the row pass; the row pass lifts the
+// 2 * kTI window rows the tile outputs.  Output: the
+// interleaved tile into dst, or with kStats the tile's error statistics
+// over the valid region rows [0, vh) x cols [0, vw) (level 0 only) into
+// one partial per tile.
+template <bool kStats>
+__global__ void __launch_bounds__(kTileThreads)
+    inv_tile(const int32_t* q, const int32_t* cut, int cut_d0, int hp, int wp,
+             Plane ll, Plane dst, int hl, int wl, int n_tj, StatsArgs st) {
+  __shared__ float s[kTileFloats];
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kWin + tx;
+  const int frame = blockIdx.y;
+  const int ti = blockIdx.x / n_tj, tj = blockIdx.x % n_tj;
+  const int h = hl >> 1, w = wl >> 1;
+  const int bi = ti * kTI - kHalo, bj = tj * kTJ - kHalo;
+  {
+    // Thread (tx, ty) copies window column tx, rows ty, ty + kRowsY, ...
+    // (the integers as raw bits), then dequantizes and scales its own.
+    const int fcut = __ldg(cut + frame / cut_d0);
+    const int32_t* qf = q + (size_t)frame * hp * wp;
+    const float* llf = ll.p ? ll.p + frame * ll.frame : nullptr;
+    const int hc = tx / kLJ;
+    const int gj = clampi(bj + tx % kLJ, 0, w - 1);
+    const int qcol = hc * w + gj;
+    const bool ll_col = llf != nullptr && hc == 0;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        const int gi = clampi(bi + ty + i * kRowsY, 0, h - 1);
+        float* d = s + (hr * kLI + ty + i * kRowsY) * kPitch + tx;
+        if (ll_col && hr == 0)
+          cp_async4(d, llf + (size_t)gi * ll.pitch + gj);
+        else
+          cp_async4(d, qf + (size_t)(hr * h + gi) * wp + qcol);
+      }
+    cp_async_wait();
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+      for (int i = 0; i < kPerThread; ++i) {
+        float* d = s + (hr * kLI + ty + i * kRowsY) * kPitch + tx;
+        const float v = (ll_col && hr == 0) ? *d
+                                            : dequant(__float_as_int(*d), fcut);
+        *d = __fmul_rn(v, hr ? kXi : kInvXi);
+      }
   }
-  const Stats r = block_reduce(acc);
-  if (threadIdx.x == 0) {
-    const size_t o = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-    row_sum[o] = r.sum;
-    row_mx[o] = r.mx;
-    row_mn[o] = r.mn;
-    row_bad[o] = r.bad;
+  __syncthreads();
+  {
+    // Columns: every window column, scaled for the row pass.
+    const int c = tid % kWin, first = (tid / kWin) * kSeg;
+    tile_pass<true>(true, s + c, s + kLI * kPitch + c, kPitch, first, bi, h,
+                    c < kLJ ? kInvXi : kXi);
+  }
+  {
+    // Rows: the 2 * kTI window rows the tile outputs.
+    const int j = tid % (2 * kTI), first = (tid / (2 * kTI)) * kSeg;
+    float* row = s + ((j / kTI) * kLI + kHalo + j % kTI) * kPitch;
+    tile_pass<true>(tid < 2 * kTI * kSegs, row, row + kLJ, 1, first, bj, w,
+                    1.0f);
+  }
+  // Output row 2i + hr is slot i of half hr; the same along the columns.
+  const int r0 = 2 * ti * kTI, c0 = 2 * tj * kTJ;
+  Stats acc = stats_identity();
+  float sc = 0.0f, of = 0.0f, tg = 0.0f;
+  if (kStats) {
+    const int chunk = frame / st.d0;
+    sc = st.scale[chunk];
+    of = st.off[chunk];
+    tg = st.target[chunk];
+  }
+  float tv[kOutPerThread];
+  if (kStats) {
+#pragma unroll
+    for (int i = 0; i < kOutPerThread; ++i) {
+      const int idx = tid + i * kTileThreads;
+      const int gr = r0 + idx / (2 * kTJ), gc = c0 + idx % (2 * kTJ);
+      tv[i] = (idx < 4 * kTI * kTJ && gr < st.vh && gc < st.vw)
+                  ? __ldg(st.t + (size_t)frame * hp * wp + (size_t)gr * wp + gc)
+                  : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kOutPerThread; ++i) {
+    const int idx = tid + i * kTileThreads;
+    const int r = idx / (2 * kTJ), c = idx % (2 * kTJ);
+    const int gr = r0 + r, gc = c0 + c;
+    if (idx >= 4 * kTI * kTJ || gr >= (kStats ? st.vh : hl) ||
+        gc >= (kStats ? st.vw : wl))
+      continue;
+    const float v = s[((r & 1) * kLI + kHalo + (r >> 1)) * kPitch +
+                      (c & 1) * kLJ + kHalo + (c >> 1)];
+    if (kStats) {
+      const float err = __fsub_rn(tv[i], __fadd_rn(__fmul_rn(v, sc), of));
+      acc.sum += (double)err;
+      acc.mx = fmaxf(acc.mx, err);
+      acc.mn = fminf(acc.mn, err);
+      acc.bad += fabsf(err) > tg ? 1 : 0;
+    } else {
+      dst.p[frame * dst.frame + (size_t)gr * dst.pitch + gc] = v;
+    }
+  }
+  if (kStats) {
+    const Stats red = block_reduce<kTileThreads>(acc, tid);
+    if (tid == 0) {
+      const size_t o = (size_t)frame * gridDim.x + blockIdx.x;
+      st.sum[o] = red.sum;
+      st.mx[o] = red.mx;
+      st.mn[o] = red.mn;
+      st.bad[o] = red.bad;
+    }
   }
 }
 
-// Reduces each (cut, frame)'s vh row partials, one block each (blockIdx.x
-// the frame, blockIdx.y the cut), in a fixed order: thread t sums rows t,
-// t + 256, ... in turn, then the block tree.  out[(cut * n_frames + frame)
-// * 4 + {0,1,2,3}] = sum, max, min, count.
-__global__ void curve_reduce(const double* row_sum, const float* row_mx,
-                             const float* row_mn, const int* row_bad,
-                             int vh, double* out) {
+// Forward level l of a (hl, wl) spatial block, one block per tile of
+// kTI x kTJ coefficients in each of the four output quadrants.
+//
+// Halo.  The outputs of half-index i in [i0, i0 + kTI) need even of step 4
+// and odd of step 3 there (steps: alpha on odd, beta on even, gamma on odd,
+// delta on even); hence odd of step 3 on [i0-1, i0+kTI), even of step 2 on
+// [i0-1, i0+kTI], odd of step 1 on [i0-2, i0+kTI], and input pairs on
+// [i0-2, i0+kTI+1]: kHalo = 2 on each side, along both axes.
+//
+// The row pass lifts every window row first, then the column pass the
+// 2 * kTJ window columns the tile outputs.  The LL quadrant goes to `ll`
+// (the next level's input) unless this is the last level; every other
+// coefficient is final and goes to q truncated toward zero (kQuant) or to
+// out.
+template <bool kQuant>
+__global__ void __launch_bounds__(kTileThreads)
+    fwd_tile(Plane src, Plane ll, float* out, int32_t* q, int hp, int wp,
+             int hl, int wl, int n_tj, int last) {
+  __shared__ float s[kTileFloats];
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kWin + tx;
+  const int frame = blockIdx.y;
+  const int ti = blockIdx.x / n_tj, tj = blockIdx.x % n_tj;
+  const int h = hl >> 1, w = wl >> 1;
+  const int bi = ti * kTI - kHalo, bj = tj * kTJ - kHalo;
+  {
+    // Spatial rows 2g + hr and columns 2g + hc, deinterleaved into halves;
+    // consecutive threads read consecutive columns.
+    const float* sf = src.p + frame * src.frame;
+    const int hc = tx & 1, m = tx >> 1;
+    const int scol = 2 * clampi(bj + m, 0, w - 1) + hc;
+#pragma unroll
+    for (int i = 0; i < 2 * kPerThread; ++i) {
+      const int a = ty + i * kRowsY;
+      const int gi = clampi(bi + (a >> 1), 0, h - 1);
+      cp_async4(s + ((a & 1) * kLI + (a >> 1)) * kPitch + hc * kLJ + m,
+                sf + (size_t)(2 * gi + (a & 1)) * src.pitch + scol);
+    }
+    cp_async_wait();
+  }
+  __syncthreads();
+  {
+    // Rows: every window row.
+    const int j = tid % (2 * kLI), first = (tid / (2 * kLI)) * kSeg;
+    float* row = s + j * kPitch;
+    tile_pass<false>(true, row, row + kLJ, 1, first, bj, w, 1.0f);
+  }
+  {
+    // Columns: the 2 * kTJ window columns the tile outputs.
+    const int j = tid % (2 * kTJ), first = (tid / (2 * kTJ)) * kSeg;
+    const int c = (j / kTJ) * kLJ + kHalo + j % kTJ;
+    tile_pass<false>(tid < 2 * kTJ * kSegs, s + c, s + kLI * kPitch + c,
+                     kPitch, first, bi, h, 1.0f);
+  }
+  const size_t fq = (size_t)frame * hp * wp;
+  for (int idx = tid; idx < 4 * kTI * kTJ; idx += kTileThreads) {
+    const int r = idx / (2 * kTJ), c = idx % (2 * kTJ);
+    const int hr = r / kTI, k = r % kTI, hc = c / kTJ, m = c % kTJ;
+    const int gi = ti * kTI + k, gj = tj * kTJ + m;
+    if (gi >= h || gj >= w) continue;
+    const float v = s[(hr * kLI + kHalo + k) * kPitch + hc * kLJ + kHalo + m];
+    if (!last && hr == 0 && hc == 0) {
+      ll.p[frame * ll.frame + (size_t)gi * ll.pitch + gj] = v;
+    } else {
+      const size_t o = fq + (size_t)(hr * h + gi) * wp + hc * w + gj;
+      if (kQuant)
+        q[o] = (int32_t)truncf(v);
+      else
+        out[o] = v;
+    }
+  }
+}
+
+// ---------------------------------------------------------- coarse levels
+//
+// One block of (32, 32) threads per frame keeps the levels from lc on in
+// shared memory: two buffers of (hp>>lc) x (wp>>lc) floats at an odd pitch
+// P (so that row segments of neighbouring threads hit distinct banks).
+// Each pass lifts segments of the level's lines as the tiles do, reading
+// one buffer and writing the other, so no barrier separates a segment's
+// loads from its stores, and the (de)interleaving of the halves is folded
+// into the stores.  The level's edges are at both ends of every line.
+
+__device__ __forceinline__ int coarse_pitch(int wp, int lc) {
+  return (wp >> lc) | 1;
+}
+
+// One pass over n_lines lines of n samples per half: line j's slot k at
+// lo + j * ls + k * st (high half at + hs); its results to the same slots
+// of dlo / dhi (stride dst, line stride dls).  Neighbouring threads take
+// neighbouring lines.  The inverse scales lines j < n_lines / 2 by sc_lo,
+// the others by sc_hi.
+template <bool kInverse>
+__device__ __forceinline__ void coarse_pass(const float* lo, int hs, int ls,
+                                            int st, float* dlo, float* dhi,
+                                            int dls, int dst, int n_lines,
+                                            int n, float sc_lo, float sc_hi) {
+  const int n_segs = (n + kSeg - 1) / kSeg;
+  const int nt = kCoarseSide * kCoarseSide;
+  for (int it = threadIdx.y * kCoarseSide + threadIdx.x;
+       it < n_lines * n_segs; it += nt) {
+    const int j = it % n_lines, first = (it / n_lines) * kSeg - kHalo;
+    Seg g;
+    seg_load<true>(g, lo + j * ls, lo + j * ls + hs, st, first, n);
+    seg_lift<kInverse>(g, first, n, j < n_lines / 2 ? sc_lo : sc_hi);
+    seg_store<true>(g, dlo + j * dls, dhi + j * dls, dst, first, n);
+  }
+  __syncthreads();
+}
+
+// Forward levels [lc, levels) of one frame per block.  `a` holds the
+// level's spatial block; the row pass writes its deinterleaved rows to `b`,
+// the column pass the deinterleaved columns back to `a`, which then holds
+// the level's Mallat block: its LL is the next level's spatial block, and
+// every other coefficient (all of them at the last level) goes out.
+template <bool kQuant>
+__global__ void __launch_bounds__(kCoarseSide* kCoarseSide)
+    fwd_coarse(Plane src, float* out, int32_t* q, int hp, int wp, int lc,
+               int levels) {
+  extern __shared__ float smem[];
+  const int P = coarse_pitch(wp, lc), H0 = hp >> lc, W0 = wp >> lc;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  float* a = smem;
+  float* b = smem + H0 * P;
+  const int frame = blockIdx.x;
+  const float* sf = src.p + frame * src.frame;
+  for (int r = ty; r < H0; r += kCoarseSide)
+    for (int c = tx; c < W0; c += kCoarseSide)
+      cp_async4(a + r * P + c, sf + (size_t)r * src.pitch + c);
+  cp_async_wait();
+  __syncthreads();
+  const size_t fq = (size_t)frame * hp * wp;
+  for (int l = lc; l < levels; ++l) {
+    const int hl = hp >> l, wl = wp >> l, h = hl >> 1, w = wl >> 1;
+    // rows: samples 2k, 2k+1 of row j -> columns k, w + k of b
+    coarse_pass<false>(a, 1, P, 2, b, b + w, P, 1, hl, w, 1.0f, 1.0f);
+    // columns: rows 2k, 2k+1 of column j -> rows k, h + k of a
+    coarse_pass<false>(b, P, 1, 2 * P, a, a + h * P, 1, P, wl, h, 1.0f, 1.0f);
+    for (int r = ty; r < hl; r += kCoarseSide)
+      for (int c = tx; c < wl; c += kCoarseSide) {
+        if (l + 1 < levels && r < h && c < w) continue;
+        const float v = a[r * P + c];
+        const size_t o = fq + (size_t)r * wp + c;
+        if (kQuant)
+          q[o] = (int32_t)truncf(v);
+        else
+          out[o] = v;
+      }
+    // The next level's passes only touch the LL block, which this loop
+    // does not write.
+  }
+}
+
+// Inverse levels levels-1 down to lc of one frame per block.  `a` holds
+// the level's Mallat block (its LL the previous level's output), the
+// halves scaled for the column pass; the column pass writes interleaved
+// rows to `b`, the row pass interleaved columns back to `a`, which then
+// holds the level's spatial block.  That of level lc goes to dst.
+__global__ void __launch_bounds__(kCoarseSide* kCoarseSide)
+    inv_coarse(const int32_t* q, const int32_t* cut, int cut_d0, int hp,
+               int wp, int lc, int levels, Plane dst) {
+  extern __shared__ float smem[];
+  const int P = coarse_pitch(wp, lc), H0 = hp >> lc, W0 = wp >> lc;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  float* a = smem;
+  float* b = smem + H0 * P;
+  const int frame = blockIdx.x;
+  const int fcut = __ldg(cut + frame / cut_d0);
+  const int32_t* qf = q + (size_t)frame * hp * wp;
+  // The integers of every coarse level, as raw bits, into `a`: each level
+  // consumes its own (hl, wl) block before its passes write over it, and
+  // leaves the finer levels' integers outside that block in place.
+  for (int r = ty; r < H0; r += kCoarseSide)
+    for (int c = tx; c < W0; c += kCoarseSide)
+      cp_async4(a + r * P + c, qf + (size_t)r * wp + c);
+  cp_async_wait();
+  __syncthreads();
+  for (int l = levels - 1; l >= lc; --l) {
+    const int hl = hp >> l, wl = wp >> l, h = hl >> 1, w = wl >> 1;
+    for (int r = ty; r < hl; r += kCoarseSide)
+      for (int c = tx; c < wl; c += kCoarseSide) {
+        const float x = a[r * P + c];
+        const float v = (l + 1 < levels && r < h && c < w)
+                            ? x
+                            : dequant(__float_as_int(x), fcut);
+        a[r * P + c] = __fmul_rn(v, r < h ? kInvXi : kXi);
+      }
+    __syncthreads();
+    // columns: rows k, h + k of column j -> rows 2k, 2k+1 of b, scaled by
+    // the column's half for the row pass
+    coarse_pass<true>(a, h * P, 1, P, b, b + P, 1, 2 * P, wl, h, kInvXi, kXi);
+    // rows: columns k, w + k of row j -> columns 2k, 2k+1 of a
+    coarse_pass<true>(b, w, P, 1, a, a + 1, P, 2, hl, w, 1.0f, 1.0f);
+  }
+  float* df = dst.p + frame * dst.frame;
+  for (int r = ty; r < H0; r += kCoarseSide)
+    for (int c = tx; c < W0; c += kCoarseSide)
+      df[(size_t)r * dst.pitch + c] = a[r * P + c];
+}
+
+// Reduces each (cut, frame)'s n_parts partials, one block each (blockIdx.x
+// the frame, blockIdx.y the cut), in a fixed order: thread t merges parts
+// t, t + 256, ... in turn, then the block tree.  out[(cut * n_frames +
+// frame) * 4 + {0,1,2,3}] = sum, max, min, count.
+__global__ void curve_reduce(const double* p_sum, const float* p_mx,
+                             const float* p_mn, const int* p_bad, int n_parts,
+                             double* out) {
   const size_t cell = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  const size_t r0 = cell * vh;
+  const size_t r0 = cell * n_parts;
   Stats acc = stats_identity();
-  for (int r = threadIdx.x; r < vh; r += blockDim.x)
-    stats_merge(acc, Stats{row_sum[r0 + r], row_mx[r0 + r], row_mn[r0 + r],
-                           row_bad[r0 + r]});
-  const Stats v = block_reduce(acc);
+  for (int r = threadIdx.x; r < n_parts; r += blockDim.x)
+    stats_merge(acc, Stats{p_sum[r0 + r], p_mx[r0 + r], p_mn[r0 + r],
+                           p_bad[r0 + r]});
+  const Stats v = block_reduce<kReduceThreads>(acc, threadIdx.x);
   if (threadIdx.x == 0) {
     out[cell * 4 + 0] = v.sum;
     out[cell * 4 + 1] = (double)v.mx;
@@ -389,7 +690,7 @@ __global__ void curve_reduce(const double* row_sum, const float* row_mx,
   }
 }
 
-int col_smem(int hl) { return hl * kTileCols * (int)sizeof(float); }
+// ------------------------------------------------------------------- host
 
 int set_smem(const void* fn, int bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -397,32 +698,128 @@ int set_smem(const void* fn, int bytes) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// Shared memory of the coarse kernels from level lc: two buffers of the
+// level's block at an odd pitch.
+size_t coarse_bytes(int hp, int wp, int lc) {
+  return 2 * (size_t)(hp >> lc) * ((wp >> lc) | 1) * sizeof(float);
+}
+
+// The finest level l >= lmin from which every coarser level fits in one
+// block's shared memory, or `levels` when none does.
+int coarse_from(int hp, int wp, int levels, int lmin) {
+  for (int l = lmin; l < levels; ++l)
+    if (coarse_bytes(hp, wp, l) <= (size_t)kCoarseSmem) return l;
+  return levels;
+}
+
+const dim3 kTileBlock(kWin, kRowsY);
+const dim3 kCoarseBlock(kCoarseSide, kCoarseSide);
+
+// The compact plane of level l >= 1 (its (hp>>l) x (wp>>l) blocks) in the
+// scratch buffer: odd levels in the first part (n_frames planes of
+// (hp/2) x (wp/2) floats), even levels after it, so a level never reads
+// the plane it writes.
+Plane level_plane(float* scratch, int n_frames, int hp, int wp, int l) {
+  const size_t first = (size_t)n_frames * (hp >> 1) * (wp >> 1);
+  return Plane{(l & 1) ? scratch : scratch + first,
+               (size_t)(hp >> l) * (wp >> l), wp >> l};
+}
+
+dim3 tile_grid(int hl, int wl, int n_frames, int* n_tj) {
+  const int n_ti = ((hl >> 1) + kTI - 1) / kTI;
+  *n_tj = ((wl >> 1) + kTJ - 1) / kTJ;
+  return dim3(n_ti * *n_tj, n_frames);
+}
+
+// Inverse levels levels-1 down to lo; level 0's output goes to out, every
+// other level's to its scratch plane.
+int inverse_levels(const int32_t* q, const int32_t* cut, int cut_d0,
+                   float* scratch, Plane out, int n_frames, int hp, int wp,
+                   int levels, int lo, cudaStream_t st) {
+  auto plane = [&](int l) {
+    return l == 0 ? out : level_plane(scratch, n_frames, hp, wp, l);
+  };
+  const int lc = coarse_from(hp, wp, levels, lo);
+  if (lc < levels) {
+    const int bytes = (int)coarse_bytes(hp, wp, lc);
+    int err = set_smem((const void*)inv_coarse, bytes);
+    if (err) return err;
+    inv_coarse<<<n_frames, kCoarseBlock, bytes, st>>>(q, cut, cut_d0, hp,
+                                                       wp, lc, levels,
+                                                       plane(lc));
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  for (int l = lc - 1; l >= lo; --l) {
+    const int hl = hp >> l, wl = wp >> l;
+    int n_tj;
+    const dim3 grid = tile_grid(hl, wl, n_frames, &n_tj);
+    const Plane ll = l + 1 < levels ? plane(l + 1) : Plane{nullptr, 0, 0};
+    inv_tile<false><<<grid, kTileBlock, 0, st>>>(q, cut, cut_d0, hp, wp, ll,
+                                               plane(l), hl, wl, n_tj,
+                                               StatsArgs{});
+    const int err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Largest padded frame height the column pass takes (its tile of 32 whole
-// columns must fit in one block's shared memory).
-int ebcc_dwt97_max_rows(void) { return (227 * 1024) / (kTileCols * 4); }
+// Floats of scratch the entry points below need for n_frames frames.
+long long ebcc_dwt97_scratch_floats(int n_frames, int hp, int wp) {
+  return (long long)n_frames *
+         ((long long)(hp >> 1) * (wp >> 1) + (long long)(hp >> 2) * (wp >> 2));
+}
+
+// Number of per-(cut, frame) partials of ebcc_curve_stats for a valid
+// region of (vh, vw): one per 64x64 output tile of level 0 covering it.
+int ebcc_curve_parts(int vh, int vw) {
+  return ((vh + 2 * kTI - 1) / (2 * kTI)) * ((vw + 2 * kTJ - 1) / (2 * kTJ));
+}
 
 // Multi-level forward transform of n_frames (hp, wp) float32 frames.
-// scratch: n_frames*hp*wp float32 work buffer.  q: int32 output, truncated
-// toward zero; when q is null the float coefficients are left in scratch.
-int ebcc_dwt2d_forward(const float* x, float* scratch, int32_t* q,
+// scratch: ebcc_dwt97_scratch_floats floats.  The coefficients go to q
+// truncated toward zero when q is given, else to out (float32, hp x wp per
+// frame).
+int ebcc_dwt2d_forward(const float* x, float* scratch, float* out, int32_t* q,
                        int n_frames, int hp, int wp, int levels,
                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int err = set_smem((const void*)fwd_cols, col_smem(hp));
-  if (err) return err;
-  for (int lvl = 0; lvl < levels; ++lvl) {
-    const int hl = hp >> lvl, wl = wp >> lvl;
-    fwd_rows<<<dim3(hl, n_frames), kRowThreads, wl * sizeof(float), st>>>(
-        lvl == 0 ? x : scratch, scratch, hp, wp, wl);
-    err = (int)cudaGetLastError();
+  auto plane = [&](int l) {
+    return l == 0 ? Plane{(float*)x, (size_t)hp * wp, wp}
+                  : level_plane(scratch, n_frames, hp, wp, l);
+  };
+  const int lc = coarse_from(hp, wp, levels, 0);
+  for (int l = 0; l < lc; ++l) {
+    const int hl = hp >> l, wl = wp >> l;
+    int n_tj;
+    const dim3 grid = tile_grid(hl, wl, n_frames, &n_tj);
+    const int last = l == levels - 1;
+    const Plane ll = last ? Plane{nullptr, 0, 0} : plane(l + 1);
+    if (q != nullptr)
+      fwd_tile<true><<<grid, kTileBlock, 0, st>>>(plane(l), ll, out, q, hp, wp,
+                                                hl, wl, n_tj, last);
+    else
+      fwd_tile<false><<<grid, kTileBlock, 0, st>>>(plane(l), ll, out, q, hp,
+                                                 wp, hl, wl, n_tj, last);
+    const int err = (int)cudaGetLastError();
     if (err) return err;
-    fwd_cols<<<dim3((wl + kTileCols - 1) / kTileCols, n_frames),
-               dim3(kTileCols, kColRows), col_smem(hl), st>>>(
-        scratch, q, hp, wp, hl, wl, lvl == levels - 1);
+  }
+  if (lc < levels) {
+    const int bytes = (int)coarse_bytes(hp, wp, lc);
+    const void* fn = q != nullptr ? (const void*)fwd_coarse<true>
+                                  : (const void*)fwd_coarse<false>;
+    int err = set_smem(fn, bytes);
+    if (err) return err;
+    if (q != nullptr)
+      fwd_coarse<true><<<n_frames, kCoarseBlock, bytes, st>>>(
+          plane(lc), out, q, hp, wp, lc, levels);
+    else
+      fwd_coarse<false><<<n_frames, kCoarseBlock, bytes, st>>>(
+          plane(lc), out, q, hp, wp, lc, levels);
     err = (int)cudaGetLastError();
     if (err) return err;
   }
@@ -431,73 +828,52 @@ int ebcc_dwt2d_forward(const float* x, float* scratch, int32_t* q,
 
 // Dequantize n_frames (hp, wp) int32 frames at their chunk's cut
 // (cut[frame / d0]) and run the multi-level inverse transform into out.
-int ebcc_idwt2d_dequant(const int32_t* q, const int32_t* cut, float* out,
-                        int n_frames, int d0, int hp, int wp, int levels,
-                        void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  int err = set_smem((const void*)inv_cols, col_smem(hp));
-  if (err) return err;
-  for (int lvl = levels - 1; lvl >= 0; --lvl) {
-    const int hl = hp >> lvl, wl = wp >> lvl;
-    const int hd = lvl == levels - 1 ? 0 : hl >> 1;
-    const int wd = lvl == levels - 1 ? 0 : wl >> 1;
-    inv_cols<<<dim3((wl + kTileCols - 1) / kTileCols, n_frames),
-               dim3(kTileCols, kColRows), col_smem(hl), st>>>(
-        q, cut, out, d0, hp, wp, hl, wl, hd, wd);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    inv_rows<<<dim3(hl, n_frames), kRowThreads, wl * sizeof(float), st>>>(
-        out, hp, wp, wl);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  return 0;
+// scratch: ebcc_dwt97_scratch_floats floats.
+int ebcc_idwt2d_dequant(const int32_t* q, const int32_t* cut, float* scratch,
+                        float* out, int n_frames, int d0, int hp, int wp,
+                        int levels, void* stream) {
+  return inverse_levels(q, cut, d0, scratch, Plane{out, (size_t)hp * wp, wp},
+                        n_frames, hp, wp, levels, 0, (cudaStream_t)stream);
 }
 
 // Error-vs-cut statistics (K3).  For each of the n_cuts cuts in `cuts`
-// (device int32): reconstruct every frame as K2 does at that cut into
-// `scratch` (n_frames*hp*wp float32), with the last row pass computing, for
-// the valid region rows [0, vh) x cols [0, vw), err = t - (rec *
-// scale[chunk] + off[chunk]) and its row partials (row_* arrays of
-// n_cuts*n_frames*vh entries); then one launch reduces the rows of each
-// (cut, frame) into out (n_cuts, n_frames, 4) float64: sum, max, min,
-// count(|err| > target[chunk]).  chunk = frame / d0.
+// (device int32): reconstruct every frame as K2 does at that cut, levels
+// levels-1 .. 1 into `scratch` (ebcc_dwt97_scratch_floats floats), with
+// the level-0 tile kernel computing, for the valid region rows [0, vh) x
+// cols [0, vw), err = t - (rec * scale[chunk] + off[chunk]) and its tile
+// partials (part_* arrays of n_cuts * n_frames * ebcc_curve_parts(vh, vw)
+// entries); then one launch reduces the partials of each (cut, frame) into
+// out (n_cuts, n_frames, 4) float64: sum, max, min, count(|err| >
+// target[chunk]).  chunk = frame / d0.
 int ebcc_curve_stats(const int32_t* q, const float* t, const int32_t* cuts,
                      const float* scale, const float* off,
-                     const float* target, float* scratch, double* row_sum,
-                     float* row_mx, float* row_mn, int* row_bad, double* out,
-                     int n_cuts, int n_frames, int d0, int hp, int wp,
-                     int levels, int vh, int vw, void* stream) {
+                     const float* target, float* scratch, double* part_sum,
+                     float* part_mx, float* part_mn, int* part_bad,
+                     double* out, int n_cuts, int n_frames, int d0, int hp,
+                     int wp, int levels, int vh, int vw, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int err = set_smem((const void*)inv_cols, col_smem(hp));
-  if (err) return err;
-  const size_t per_cut = (size_t)n_frames * vh;
+  const int n_ti = (vh + 2 * kTI - 1) / (2 * kTI);
+  const int n_tj = (vw + 2 * kTJ - 1) / (2 * kTJ);
+  const size_t per_cut = (size_t)n_frames * n_ti * n_tj;
+  const Plane ll = levels > 1 ? level_plane(scratch, n_frames, hp, wp, 1)
+                              : Plane{nullptr, 0, 0};
   for (int k = 0; k < n_cuts; ++k) {
-    for (int lvl = levels - 1; lvl >= 0; --lvl) {
-      const int hl = hp >> lvl, wl = wp >> lvl;
-      const int hd = lvl == levels - 1 ? 0 : hl >> 1;
-      const int wd = lvl == levels - 1 ? 0 : wl >> 1;
-      // d0 = n_frames: every frame reads its cut from cuts[k].
-      inv_cols<<<dim3((wl + kTileCols - 1) / kTileCols, n_frames),
-                 dim3(kTileCols, kColRows), col_smem(hl), st>>>(
-          q, cuts + k, scratch, n_frames, hp, wp, hl, wl, hd, wd);
-      err = (int)cudaGetLastError();
-      if (err) return err;
-      if (lvl > 0) {
-        inv_rows<<<dim3(hl, n_frames), kRowThreads, wl * sizeof(float),
-                   st>>>(scratch, hp, wp, wl);
-      } else {
-        inv_rows_stats<<<dim3(vh, n_frames), kRowThreads, wp * sizeof(float),
-                         st>>>(scratch, t, scale, off, target, d0, hp, wp, vw,
-                               row_sum + k * per_cut, row_mx + k * per_cut,
-                               row_mn + k * per_cut, row_bad + k * per_cut);
-      }
-      err = (int)cudaGetLastError();
-      if (err) return err;
-    }
+    // cut_d0 = n_frames: every frame reads its cut from cuts[k].
+    int err = inverse_levels(q, cuts + k, n_frames, scratch,
+                             Plane{nullptr, 0, 0}, n_frames, hp, wp, levels,
+                             1, st);
+    if (err) return err;
+    const StatsArgs sa{t, scale, off, target, d0, vh, vw,
+                       part_sum + k * per_cut, part_mx + k * per_cut,
+                       part_mn + k * per_cut, part_bad + k * per_cut};
+    inv_tile<true><<<dim3(n_ti * n_tj, n_frames), kTileBlock, 0, st>>>(
+        q, cuts + k, n_frames, hp, wp, ll, Plane{nullptr, 0, 0}, hp, wp, n_tj,
+        sa);
+    err = (int)cudaGetLastError();
+    if (err) return err;
   }
-  curve_reduce<<<dim3(n_frames, n_cuts), kRowThreads, 0, st>>>(
-      row_sum, row_mx, row_mn, row_bad, vh, out);
+  curve_reduce<<<dim3(n_frames, n_cuts), kReduceThreads, 0, st>>>(
+      part_sum, part_mx, part_mn, part_bad, n_ti * n_tj, out);
   return (int)cudaGetLastError();
 }
 

@@ -13,12 +13,20 @@
 
 The kernels are CUDA C++ for sm_90a in ``ebcc_tpu_torch/csrc/dwt97.cu``
 (design, bound and arithmetic notes there), built by ``ops/_build.py`` at
-first use.  A CUDA tensor goes to the kernel, and anything the kernel does
-not take raises; a CPU tensor goes to the plain PyTorch version beside each
-wrapper (``*_plain``), which the kernels are bit-equal to (K3's float64
-sum up to its summation order).  Each wrapper
-counts its kernel launches (:data:`LAUNCHES`), so a run can show that the
-main path went through the kernels.
+first use.  Each level of a frame runs as one launch over 64x64 tiles that
+carry their own 2-sample halo in a fixed 20.5 KB of shared memory, so
+frames of any padded height and width are taken; the coarse levels whose
+whole block fits in one block's shared memory run together in one more
+launch (a 5-level call at 736x1440 is 4 launches, a 3-level call 3).  The
+kernels need a work buffer of 5/16 of the frames' samples, which the
+wrappers allocate.
+
+A CUDA tensor goes to the kernel, and anything the kernel does not take
+raises; a CPU tensor goes to the plain PyTorch version beside each wrapper
+(``*_plain``), which the kernels are bit-equal to (K3's float64 sum up to
+its summation order).  Each wrapper counts its calls that launch the
+kernels (:data:`LAUNCHES`), so a run can show that the main path went
+through them.
 """
 
 from __future__ import annotations
@@ -78,14 +86,16 @@ def _lib():
     with _SIG_LOCK:
         if not getattr(lib, "_ebcc_sigs", False):
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.ebcc_dwt2d_forward.argtypes = [p, p, p, i, i, i, i, p]
+            lib.ebcc_dwt2d_forward.argtypes = [p, p, p, p, i, i, i, i, p]
             lib.ebcc_dwt2d_forward.restype = i
-            lib.ebcc_idwt2d_dequant.argtypes = [p, p, p, i, i, i, i, i, p]
+            lib.ebcc_idwt2d_dequant.argtypes = [p, p, p, p, i, i, i, i, i, p]
             lib.ebcc_idwt2d_dequant.restype = i
-            lib.ebcc_dwt97_max_rows.argtypes = []
-            lib.ebcc_dwt97_max_rows.restype = i
             lib.ebcc_curve_stats.argtypes = [p] * 12 + [i] * 8 + [p]
             lib.ebcc_curve_stats.restype = i
+            lib.ebcc_dwt97_scratch_floats.argtypes = [i, i, i]
+            lib.ebcc_dwt97_scratch_floats.restype = ctypes.c_longlong
+            lib.ebcc_curve_parts.argtypes = [i, i]
+            lib.ebcc_curve_parts.restype = i
             lib._ebcc_sigs = True
     return lib
 
@@ -102,14 +112,17 @@ def _check_frames(x, dtype, levels: int):
     b, d0, hp, wp = x.shape
     if levels < 1 or hp % (1 << levels) or wp % (1 << levels):
         raise ValueError(f"dims ({hp},{wp}) not divisible by 2^{levels}")
-    lib = _lib()
-    max_rows = lib.ebcc_dwt97_max_rows()
-    if hp > max_rows:
-        raise ValueError(f"padded height {hp} exceeds the column pass's "
-                         f"shared-memory tile ({max_rows} rows)")
     if not 0 < b * d0 <= 65535:
         raise ValueError(f"{b * d0} frames outside the launch grid")
-    return lib
+    return _lib()
+
+
+def _scratch(lib, x):
+    """The kernels' work buffer: the compact planes of the intermediate
+    levels (5/16 of the frames' samples)."""
+    b, d0, hp, wp = x.shape
+    n = lib.ebcc_dwt97_scratch_floats(b * d0, hp, wp)
+    return torch.empty(n, dtype=torch.float32, device=x.device)
 
 
 def _raise_on(err: int, what: str):
@@ -120,17 +133,18 @@ def _raise_on(err: int, what: str):
 def _forward(x, levels: int, quantize: bool):
     lib = _check_frames(x, torch.float32, levels)
     b, d0, hp, wp = x.shape
-    scratch = torch.empty_like(x)
-    q = torch.empty(x.shape, dtype=torch.int32, device=x.device) \
-        if quantize else None
+    scratch = _scratch(lib, x)
+    out = torch.empty(x.shape, dtype=torch.int32 if quantize
+                      else torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ebcc_dwt2d_forward(
             x.data_ptr(), scratch.data_ptr(),
-            q.data_ptr() if quantize else None,
+            None if quantize else out.data_ptr(),
+            out.data_ptr() if quantize else None,
             b * d0, hp, wp, levels, stream)
     _raise_on(err, "dwt2d forward kernel")
-    return q if quantize else scratch
+    return out
 
 
 def dwt2d_quantize_plain(x, levels: int):
@@ -185,12 +199,13 @@ def idwt2d_dequant(q, cut, levels: int):
     lib = _check_frames(q, torch.int32, levels)
     b, d0, hp, wp = q.shape
     cut = _cut_vector(cut, b, q.device)
+    scratch = _scratch(lib, q)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.ebcc_idwt2d_dequant(
-            q.data_ptr(), cut.data_ptr(), out.data_ptr(), b * d0, d0, hp, wp,
-            levels, stream)
+            q.data_ptr(), cut.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            b * d0, d0, hp, wp, levels, stream)
     _raise_on(err, "idwt2d dequant kernel")
     LAUNCHES["idwt2d_dequant"].add()
     return out
@@ -273,20 +288,20 @@ def curve_stats(q, t, scale, off, target, *, levels: int, cut_grid,
     scale, off, target = (_chunk_vector(v, b, q.device)
                           for v in (scale, off, target))
     dev = q.device
-    scratch = torch.empty(q.shape, dtype=torch.float32, device=dev)
-    n_rows = n_cuts * n_frames * vh
-    row_sum = torch.empty(n_rows, dtype=torch.float64, device=dev)
-    row_mx = torch.empty(n_rows, dtype=torch.float32, device=dev)
-    row_mn = torch.empty(n_rows, dtype=torch.float32, device=dev)
-    row_bad = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    scratch = _scratch(lib, q)
+    n_parts = n_cuts * n_frames * lib.ebcc_curve_parts(vh, vw)
+    part_sum = torch.empty(n_parts, dtype=torch.float64, device=dev)
+    part_mx = torch.empty(n_parts, dtype=torch.float32, device=dev)
+    part_mn = torch.empty(n_parts, dtype=torch.float32, device=dev)
+    part_bad = torch.empty(n_parts, dtype=torch.int32, device=dev)
     out = torch.empty((n_cuts, n_frames, 4), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ebcc_curve_stats(
             q.data_ptr(), t.data_ptr(), cuts.data_ptr(), scale.data_ptr(),
             off.data_ptr(), target.data_ptr(), scratch.data_ptr(),
-            row_sum.data_ptr(), row_mx.data_ptr(), row_mn.data_ptr(),
-            row_bad.data_ptr(), out.data_ptr(), n_cuts, n_frames, d0, hp, wp,
+            part_sum.data_ptr(), part_mx.data_ptr(), part_mn.data_ptr(),
+            part_bad.data_ptr(), out.data_ptr(), n_cuts, n_frames, d0, hp, wp,
             levels, vh, vw, stream)
     _raise_on(err, "curve stats kernel")
     LAUNCHES["curve_stats"].add()

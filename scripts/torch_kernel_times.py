@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Times the port's wavelet kernels (K1, its float variant, K2, K3) of one
+checkout on one CUDA card, so that two checkouts can be compared in turns
+inside one call.
+
+For each kernel, at the main path's shape (4, 1, 736, 1440) and at the tall
+frame (4, 1, 1824, 3616) of a 1801x3600 grid, on the inputs ``chip_smoke.py``
+builds (K3: the base call, 5 levels and 8 cuts, over the valid region):
+the median time of one wrapper call between two CUDA events (the
+smoke's ``ms``, the wrapper's host work included), and from
+``torch.profiler`` the CUDA kernels one call launches and the device span of
+a call (first kernel's start to last kernel's end), and the device time of
+each kernel of one call.  A shape the checkout refuses is recorded with the
+error it raised.
+
+Run from the root of a checkout of this repository::
+
+    python3 scripts/torch_kernel_times.py [--root DIR] [--out FILE]
+
+``--root`` names the checkout whose ``ebcc_tpu_torch`` is timed (by default
+this one); the helpers come from this checkout's ``chip_smoke.py``.  One
+JSON object goes to stdout (and to FILE).
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def kernels_of_one_call(torch, fn):
+    """[[kernel name, device us], ...] of one call of fn, in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset")))
+    return [[kernel_name(name), round(b - a, 3)] for a, b, name in ev]
+
+
+def kernel_name(signature):
+    """'inv_tile<false>' out of 'void (anonymous namespace)::inv_tile<false>
+    (int const*, ...)'."""
+    m = re.search(r"(\w+(?:<[^>(]*>)?)\(", signature.replace(
+        "(anonymous namespace)", ""))
+    return m.group(1) if m else signature[:40]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location(
+        "smoke_helpers", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from ebcc_tpu_torch.ops import dwt_hopper as dh
+    if not os.path.abspath(dh.__file__).startswith(root):
+        raise RuntimeError(f"imported {dh.__file__}, not from {root}")
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    frames = cs.load_frames(4)
+    tall = cs.load_frames(4, cs.TALL_H, cs.TALL_W)
+    result = {"root": root, "card": card, "rows": {}}
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for shape, src, valid in (((4, 1, 736, 1440), frames, (cs.H, cs.W)),
+                              ((4, 1, 1824, 3616), tall,
+                               (cs.TALL_H, cs.TALL_W))):
+        u = cs.scaled_input(torch, src, shape)
+        calls = {k: fn for k, (fn, _, _) in
+                 cs.kernel_calls(torch, dh, u, gen).items()}
+        q5 = dh.dwt2d_quantize_plain(u, 5)
+        k3 = (q5, u) + tuple(torch.full((shape[0],), v, device=u.device)
+                             for v in (1.0, 0.0, 0.5))
+        kw = dict(levels=5, cut_grid=cs.BASE_GRID, valid_hw=valid)
+        calls["curve_stats"] = lambda k3=k3, kw=kw: dh.curve_stats(*k3, **kw)
+        for name, fn in calls.items():
+            key = f"{name} {shape}"
+            try:
+                fn()
+            except ValueError as e:
+                result["rows"][key] = {"refused": str(e)}
+                print(f"{key}: refused ({e})", flush=True)
+                continue
+            per_call, device_ms = cs.device_profile(torch, fn)
+            row = {"event_ms": cs.median_ms(fn), "device_ms": device_ms,
+                   "kernels_per_call": per_call,
+                   "kernels_us": kernels_of_one_call(torch, fn)}
+            result["rows"][key] = row
+            print(f"{key}: {json.dumps(row)}", flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(card)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -80,6 +80,37 @@ def test_idwt2d_dequant_plain_matches_jax(kind, levels, base_test_data):
     assert np.abs(got_s - ref_s).max() <= 1e-5 * np.abs(x).max()
 
 
+TALL_NARROW = [((1, 1, 1856, 64), 5), ((2, 1, 1824, 32), 3)]
+
+
+def _tall(shape):
+    return (np.random.default_rng(4).normal(size=shape) * 100.0).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("shape,levels", TALL_NARROW)
+def test_tall_frame_quantize_plain_matches_jax(shape, levels):
+    """A padded height above 1816 rows (the port's old column-pass limit),
+    on a narrow frame: the plain forward against the XLA path."""
+    x = _tall(shape)
+    ref = np.asarray(jp.dwt2d_quantize(jnp.asarray(x), levels))
+    got = th.dwt2d_quantize(torch.from_numpy(x), levels)
+    coeffs = np.asarray(jdwt.dwt2d(jnp.asarray(x), levels))
+    _assert_ints_close(got.numpy(), ref, coeffs, 1e-5 * np.abs(x).max())
+
+
+@pytest.mark.parametrize("shape,levels", TALL_NARROW)
+def test_tall_frame_dequant_plain_matches_jax(shape, levels):
+    x = _tall(shape)
+    q = np.asarray(jp.dwt2d_quantize(jnp.asarray(x), levels))
+    cut = np.arange(shape[0], dtype=np.int32) + 2
+    ref = np.asarray(jp.idwt2d_dequant(jnp.asarray(q), jnp.asarray(cut),
+                                       levels))
+    got = th.idwt2d_dequant(torch.from_numpy(q), torch.from_numpy(cut),
+                            levels).numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(x).max()
+
+
 def test_dwt2d_transform_plain_is_the_plain_dwt():
     x = np.random.default_rng(2).normal(size=(1, 2, 64, 96)).astype(
         np.float32)
@@ -198,3 +229,45 @@ def test_cuda_kernels_match_plain(base_test_data):
                                   "idwt2d_dequant": 2, "curve_stats": 1}
     with pytest.raises(ValueError):
         th.dwt2d_quantize(x[..., :, :100].contiguous(), 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 1, 96, 160),      # not a multiple of the 64x64 tile
+    (1, 2, 224, 416),
+    (1, 1, 32, 64),       # levels shrink to 1-2 samples per half
+    (4, 1, 1824, 3616),   # a 1801x3600 grid, padded: taller than 1816 rows
+])
+def test_cuda_kernels_match_plain_at_edge_shapes(shape):
+    """The kernels at tile and level edges, with the rules of
+    ``test_cuda_kernels_match_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels build with nvcc)")
+    dev = torch.device("cuda")
+    x = torch.from_numpy(np.random.default_rng(5).random(shape) * 65535.0)
+    x = x.to(torch.float32).to(dev)
+    r = (x % 255.0).contiguous()
+    b = shape[0]
+    for levels in (3, 5):
+        qk = th.dwt2d_quantize(x, levels)
+        qp = th.dwt2d_quantize_plain(x, levels)
+        _assert_ints_close(qk.cpu().numpy(), qp.cpu().numpy())
+        torch.testing.assert_close(th.dwt2d_transform(r, levels),
+                                   th.dwt2d_transform_plain(r, levels),
+                                   rtol=0, atol=0)
+        cut = torch.arange(b, dtype=torch.int32, device=dev) + levels
+        torch.testing.assert_close(th.idwt2d_dequant(qp, cut, levels),
+                                   th.idwt2d_dequant_plain(qp, cut, levels),
+                                   rtol=0, atol=0)
+        ones = torch.ones(b, device=dev)
+        args = (qp, x, ones, 0 * ones, 0.5 * ones)
+        kw = dict(levels=levels, cut_grid=(12, 9, 6, 3, 0),
+                  valid_hw=(shape[2] - 3, shape[3] - 5))
+        got = th.curve_stats(*args, **kw)
+        want = th.curve_stats_plain(*args, **kw)
+        torch.testing.assert_close(got[..., 1:], want[..., 1:], rtol=0,
+                                   atol=0)
+        n_maxabs = (shape[2] - 3) * (shape[3] - 5) * float(
+            want[..., 1:3].abs().max())
+        assert float((got[..., 0] - want[..., 0]).abs().max()) <= \
+            1e-12 * n_maxabs
