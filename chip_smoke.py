@@ -32,13 +32,17 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 4. K3 ``curve_stats`` against its plain version at (4, 1, 736, 1440): the
    base call (5 levels, cuts 21, 18, ..., 0) and a residual call (3 levels,
    cuts 12, 9, ..., 0); max, min and count equal, the float64 sum within
-   its stated tolerance; median times and device spans.  Then both calls
-   at the edge shapes of phase 2, with a valid region short of the
-   padding.
+   its stated tolerance; median times, device spans, and the CUDA kernels
+   of one call with each one's device time (a base call may launch at most
+   5, a residual call 4).  A 22-cut grid (every base plane, three groups of
+   cuts) against the plain version, and an unordered grid with a repeated
+   cut whose every row must equal a one-cut call's.  Then the base and
+   residual calls at the edge shapes of phase 2, with a valid region short
+   of the padding, and the 22-cut grid at the tall one.
 5. The fused-curve path: the 32 frames through ``roundtrip_frames_device``
    at RELATIVE_ERROR 1e-2 with ``EBCC_FUSED_CURVE=1``; every chunk within
    1e-2 of its range, ``curve_stats`` launched; the same roundtrip with the
-   flag off must make the same cuts and flags, sizes within 1%.
+   flag off must make the same cuts and flags and byte-identical streams.
 6. POINTWISE_RELATIVE 1e-3 with ``allow_nan`` on 8 frames given as a numpy
    array with NaN over a fixed ~30% mask: ``encode_frames_device`` then
    ``decode_frames_device`` on the card restore every NaN and keep
@@ -68,7 +72,10 @@ import numpy as np
 
 H, W = 721, 1440
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# Separately rounded float32 adds or multiplies the card issues per second
+# (the kernels never contract them into an FMA): SMs x 128 lanes x the
+# maximum SM clock, set by f32_ops_per_s() from the card at hand.
+F32_OPS_PER_S = None
 
 
 def load_frames(n, h=H, w=W):
@@ -120,6 +127,18 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0] if out else "unknown"
+
+
+def f32_ops_per_s(torch):
+    """multi_processor_count x 128 x the card's maximum SM clock."""
+    global F32_OPS_PER_S
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    F32_OPS_PER_S = sms * 128 * float(mhz) * 1e6
+    return F32_OPS_PER_S
 
 
 def median_ms(fn, reps=20, warm=3):
@@ -336,6 +355,31 @@ def time_rows(rows):
 
 BASE_GRID = tuple(range(21, -1, -3))          # 21, 18, ..., 3, 0
 RES_GRID = tuple(range(12, -1, -3))            # 12, 9, 6, 3, 0
+ALL_BASE_CUTS = tuple(range(21, -1, -1))       # every base plane: 22 cuts
+UNORDERED_GRID = (0, 6, 6, 12)
+
+
+def kernel_times_module():
+    """``scripts/torch_kernel_times.py`` of this checkout, as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_kernel_times.py")
+    spec = importlib.util.spec_from_file_location("torch_kernel_times", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_rows_independent(torch, dh, name, args, kw):
+    """Every row of a call on kw's grid equals the row of a one-cut call
+    at that cut: a row depends on no other cut of the grid."""
+    got = dh.curve_stats(*args, **kw)
+    for k, cut in enumerate(kw["cut_grid"]):
+        one = dh.curve_stats(*args, **dict(kw, cut_grid=(cut,)))
+        if not torch.equal(got[k], one[0]):
+            raise AssertionError(f"K3 ({name}): the row of cut {cut} "
+                                 "depends on the grid")
+    print(f"K3 {name}: rows of grid {kw['cut_grid']} equal one-cut calls")
 
 
 def phase_curve(torch, dh, frames, tall):
@@ -397,6 +441,22 @@ def phase_curve(torch, dh, frames, tall):
             replaces="ebcc_tpu/ops/dwt_pallas.py:253")
     time_rows(rows)
     profile_rows(torch, rows)
+    ktm = kernel_times_module()
+    for name, most in (("curve_stats", 5), ("curve_stats L3", 4)):
+        row = rows[name]
+        print(f"  {name}: kernels of one call (device us): "
+              f"{ktm.kernels_of_one_call(torch, row['fn'])}")
+        if row["per_call"] is None or row["per_call"] > most:
+            raise AssertionError(f"{name}: {row['per_call']} kernels per "
+                                 f"call, at most {most} expected")
+
+    c = calls["curve_stats"]
+    args = (c["q"], c["t"], c["scale"], c["off"], c["target"])
+    check_curve(torch, dh, f"curve_stats {tuple(q5.shape)}", args,
+                dict(levels=5, cut_grid=ALL_BASE_CUTS, valid_hw=(H, W)))
+    check_rows_independent(torch, dh, f"curve_stats {tuple(q5.shape)}", args,
+                           dict(levels=5, cut_grid=UNORDERED_GRID,
+                                valid_hw=(H, W)))
 
     # Edge shapes: the padded frame itself as the target, unit scale, a
     # valid region short of the padding by 3 rows and 5 columns.
@@ -406,8 +466,10 @@ def phase_curve(torch, dh, frames, tall):
         re_ = (ue % 255.0).contiguous()
         ones = torch.ones(shape[0], device=dev)
         valid = (shape[2] - 3, shape[3] - 5)
-        for levels, grid, t, target in ((5, BASE_GRID, ue, 0.5),
-                                        (3, RES_GRID, re_, 0.05)):
+        grids = ((5, BASE_GRID, ue, 0.5), (3, RES_GRID, re_, 0.05))
+        if shape[2] > 736:
+            grids += ((5, ALL_BASE_CUTS, ue, 0.5),)
+        for levels, grid, t, target in grids:
             q = dh.dwt2d_quantize_plain(t, levels)
             check_curve(torch, dh, f"curve_stats L{levels} {shape}",
                         (q, t, ones, 0 * ones, target * ones),
@@ -570,7 +632,7 @@ def phase_relative(torch, et, dh, frames, card):
           f"{launches_f['idwt2d_dequant']}, K3 launches "
           f"{launches_f['curve_stats']}, residual sweeps "
           f"{launches_f['dwt2d_transform']} of {n // 4} batches")
-    if differ or size_rel > 0.01:
+    if differ or same != n:
         raise AssertionError("fused and unfused encodes disagree")
     return launches_f
 
@@ -671,7 +733,8 @@ def main():
     # ---- phase 1: card and build ----
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    print(f"card: {card}")
+    print(f"card: {card}, float32 add/multiply rate "
+          f"{f32_ops_per_s(torch):.4e} ops/s (bounds' operations rate)")
     try:
         import zstandard  # noqa: F401
         print("zstandard: importable")

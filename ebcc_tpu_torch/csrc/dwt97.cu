@@ -51,14 +51,38 @@
 // the memory idles while they lift; the coarse kernel runs on one SM per
 // frame.
 //
-// K3 runs K2's levels once per cut of its grid over one frame-batch of
-// scratch (so its memory does not grow with the grid), with the error
-// statistics fused into the level-0 tile kernel: it writes no frame, only
-// per-tile partials (float64 sum, max, min, count), and one more launch
-// reduces each (cut, frame)'s tiles in a fixed order, never with atomics,
-// so the sum does not depend on the batch or the run.  Its bound: the
-// operations of n_cuts inverse transforms against one read of q and t
-// (8 B per coefficient); each cut still costs one K2 call's frame trips.
+// K3 lifts every cut of its grid from one load of q and t.  The cuts run in
+// groups of kCutGroup (a constant; the codec's grids have 8 and 5 cuts).
+// Each cut of a group has its own level planes, so the scratch is
+// min(n_cuts, kCutGroup) * ebcc_dwt97_scratch_floats floats, 5/16 of the
+// frames' samples per cut (5.3 MB per cut at (4, 1, 736, 1440), 42 MB for
+// 8 cuts), plus 20 B of partials per (cut, frame, 64x64 tile).  Per group,
+// levels levels-1 .. 1 of all its cuts run as K2's, one launch per level
+// (the cut is inv_tile's blockIdx.z, inv_coarse's blockIdx.y); then
+// curve_tile runs level 0: one block per (64x64 output tile, frame) copies
+// q's window once as raw bits and loads the tile's targets once into
+// registers, and per cut dequantizes in its column pass, copies that cut's
+// level-1 LL footprint (its only per-cut read, double-buffered so the next
+// cut's copy overlaps this cut's lifting) and reduces err = t - (rec *
+// scale + off) in its row pass, from registers, into a per-tile partial
+// (float64 sum, max, min, count) at (cut, frame, tile); two barriers per
+// cut, and no frame is written.  One more launch reduces each (cut,
+// frame)'s tiles in a fixed order, never with atomics, so a row depends
+// neither on the batch, the run nor the other cuts of the grid.  A 5-level
+// call at 736x1440 is 5 launches (coarse, levels 2 and 1, curve_tile,
+// curve_reduce), a 3-level call 4.  Its bound is its operations: n_cuts
+// inverse transforms, dequantization and statistics, each op one
+// instruction (no FMA, below) at 132 SMs x 128 lanes x clock, about 0.034
+// ms for 8 cuts at (4, 1, 736, 1440), against 0.0101 ms for 8 B per
+// coefficient of q and t.  The level-1 planes add about 2 B per coefficient
+// per cut (written once, read once by curve_tile), mostly within the 50 MB
+// L2.  What still holds it back (PERF.md): the lifting itself.  curve_tile
+// spends ~17 us per cut at (4, 1, 736, 1440), about a K2 level-0 launch:
+// the halo and the overlapping 12-slot segments lift 1.7-1.9x the samples
+// the outputs need, and with 3 blocks of 9 warps per SM (72 registers) it
+// issues at about half the rate its instruction count allows (an estimate
+// from the source, not a profiler count).  Levels 1 and 2 and the coarse
+// kernel add ~75 us, the coarse kernel on 32 of 132 SMs.
 //
 // Arithmetic: every lifting update is o + c * (e + e_next) with each
 // operation rounded on its own (__fadd_rn / __fmul_rn, which nvcc never
@@ -107,13 +131,17 @@ static_assert(kWin * kRowsY == 2 * kLI * kSegs, "one segment per thread");
 constexpr int kReduceThreads = 256;   // curve_reduce
 constexpr int kCoarseSmem = 227 * 1024;  // a block's dynamic shared memory
 constexpr int kCoarseSide = 32;       // blockDim = (32, 32)
+constexpr int kCutGroup = 8;          // K3's cuts per group of launches
+constexpr int kCurveBlocks = 3;       // curve_tile blocks per SM (registers)
 
 // A stack of per-frame float planes: frame f, row r, column c is at
-// p[f * frame + r * pitch + c].
+// p[f * frame + r * pitch + c].  K3 keeps one stack per cut of a group,
+// cut_stride floats apart.
 struct Plane {
   float* p;
   size_t frame;
   int pitch;
+  size_t cut_stride = 0;
 };
 
 __device__ __forceinline__ float lift(float x, float c, float a, float b) {
@@ -136,19 +164,27 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Dequantize one coefficient at `cut` (ebcc_tpu/ops/dwt_pallas.py:164-172):
-// keep |q| >> cut << cut, add the half step (or 0.5 at cut 0) when
-// significant, restore the sign.  Exact in float32 for |q| < 2^23.
-__device__ __forceinline__ float dequant(int32_t q, int cut) {
+// Dequantization at one cut (ebcc_tpu/ops/dwt_pallas.py:164-172): keep
+// |q| >> cut << cut, add the half step (or 0.5 at cut 0) when significant,
+// restore the sign.  Exact in float32 for |q| < 2^23.  The reference adds
+// the half step (2^(cut-1), or 0 at cut 0) and then 0.5 (or 0 at cut > 0)
+// to the positive kept value; adding +0 to a positive float is exact, so
+// one add of `add` gives the same bits.
+struct Dequant {
+  int32_t mask;  // clears the planes below the cut
+  float add;
+};
+
+__device__ __forceinline__ Dequant dequant_at(int cut) {
   cut = cut < 0 ? 0 : (cut > 30 ? 30 : cut);  // valid cuts are < 32 planes
-  int32_t mag = q < 0 ? -q : q;
-  int32_t kept = (mag >> cut) << cut;
-  float rec = 0.0f;
-  if (kept > 0) {
-    float off = cut > 0 ? (float)((1 << cut) >> 1) : 0.0f;
-    rec = __fadd_rn(__fadd_rn((float)kept, off), cut == 0 ? 0.5f : 0.0f);
-  }
-  return q < 0 ? -rec : rec;
+  return Dequant{(int32_t)(0xffffffffu << cut),
+                 cut > 0 ? (float)(1 << (cut - 1)) : 0.5f};
+}
+
+__device__ __forceinline__ float dequant(int32_t q, Dequant d) {
+  const int32_t kept = (q < 0 ? -q : q) & d.mask;
+  const float rec = kept > 0 ? __fadd_rn((float)kept, d.add) : 0.0f;
+  return __int_as_float(__float_as_int(rec) | (q & (int32_t)0x80000000));
 }
 
 // --------------------------------------------------------- line segments
@@ -299,25 +335,22 @@ __device__ __forceinline__ void stats_merge(Stats& a, const Stats& b) {
   a.bad += b.bad;
 }
 
-// Reduction of one Stats per thread over a block of kN threads (thread t
-// = its linear index): threads [P, kN) fold into [0, kN - P), P the largest
-// power of two <= kN, then a tree.  The pairing is fixed, so the float64
-// sum comes out the same on every run for the same inputs.  Every thread
-// returns the block's result.
-template <int kN>
+// Reduction of one Stats per thread over a block of kReduceThreads threads
+// (a power of two; thread t = its linear index) in a fixed tree, so the
+// float64 sum comes out the same on every run for the same inputs.  Every
+// thread returns the block's result.
 __device__ Stats block_reduce(Stats v, int t) {
-  constexpr int kP = kN >= 512 ? 512 : kN >= 256 ? 256 : 128;
-  static_assert(kP <= kN && kN < 2 * kP, "block size");
-  __shared__ double r_sum[kN];
-  __shared__ float r_mx[kN], r_mn[kN];
-  __shared__ int r_bad[kN];
+  static_assert((kReduceThreads & (kReduceThreads - 1)) == 0, "power of 2");
+  __shared__ double r_sum[kReduceThreads];
+  __shared__ float r_mx[kReduceThreads], r_mn[kReduceThreads];
+  __shared__ int r_bad[kReduceThreads];
   r_sum[t] = v.sum;
   r_mx[t] = v.mx;
   r_mn[t] = v.mn;
   r_bad[t] = v.bad;
   __syncthreads();
-  for (int half = kP; half > 0; half >>= 1) {
-    if (t < half && t + half < (half == kP ? kN : 2 * half)) {
+  for (int half = kReduceThreads / 2; half > 0; half >>= 1) {
+    if (t < half) {
       r_sum[t] += r_sum[t + half];
       r_mx[t] = fmaxf(r_mx[t], r_mx[t + half]);
       r_mn[t] = fminf(r_mn[t], r_mn[t + half]);
@@ -328,22 +361,50 @@ __device__ Stats block_reduce(Stats v, int t) {
   return Stats{r_sum[0], r_mx[0], r_mn[0], r_bad[0]};
 }
 
-// The error statistics of one tile, for K3 (kStats of inv_tile).
+// The error statistics of K3's level 0 (curve_tile).
 struct StatsArgs {
   const float* t;  // (n_frames, hp, wp) targets
   const float* scale;
   const float* off;
   const float* target;
   int d0, vh, vw;
-  double* sum;  // one partial per (frame, tile)
+  double* sum;  // one partial per (cut, frame, tile)
   float* mx;
   float* mn;
   int* bad;
 };
 
+// Copies the entries of thread (tx, ty) of a tile block, window column tx,
+// rows ty, ty + kRowsY, ... of both halves, of the window whose first
+// slots are the half-indices (bi, bj) of a level of (h, w) samples per
+// half, clamped into the level, to s: the integers, as raw bits, from qf
+// (row pitch wp), except the LL quadrant when llf is given; with kLL that
+// quadrant from llf (the previous level's output, row pitch llp).
+template <bool kLL>
+__device__ __forceinline__ void window_copy(float* s, const int32_t* qf,
+                                            int wp, const float* llf, int llp,
+                                            int bi, int bj, int h, int w) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int hc = tx / kLJ;
+  const int gj = clampi(bj + tx % kLJ, 0, w - 1);
+  const bool ll_col = llf != nullptr && hc == 0;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int gi = clampi(bi + ty + i * kRowsY, 0, h - 1);
+      float* d = s + (hr * kLI + ty + i * kRowsY) * kPitch + tx;
+      if (ll_col && hr == 0) {
+        if (kLL) cp_async4(d, llf + (size_t)gi * llp + gj);
+      } else {
+        cp_async4(d, qf + (size_t)(hr * h + gi) * wp + hc * w + gj);
+      }
+    }
+}
+
 // Inverse level l of a (hl, wl) block, one block of (kWin, kRowsY) threads
 // per 64x64 output tile (blockIdx.x = tile, n_tj tiles per tile row;
-// blockIdx.y = frame).
+// blockIdx.y = frame; blockIdx.z = K3's cut within its group, 0 for K2).
 //
 // Halo.  Output rows 2i, 2i+1 for i in [i0, i0 + kTI) need, after the four
 // steps (-delta on even, -gamma on odd, -beta on even, -alpha on odd), even
@@ -354,51 +415,34 @@ struct StatsArgs {
 //
 // Inputs: the LL quadrant from `ll` (the previous level's output) unless
 // ll.p is null (the coarsest level), the other three from q dequantized at
-// the frame's cut, cut[frame / cut_d0].  The column pass lifts all kWin
-// window columns and scales them for the row pass; the row pass lifts the
-// 2 * kTI window rows the tile outputs.  Output: the
-// interleaved tile into dst, or with kStats the tile's error statistics
-// over the valid region rows [0, vh) x cols [0, vw) (level 0 only) into
-// one partial per tile.
-template <bool kStats>
+// cut[z + frame / cut_d0].  The column pass lifts all kWin window columns
+// and scales them for the row pass; the row pass lifts the 2 * kTI window
+// rows the tile outputs.  Output: the interleaved tile into dst.
 __global__ void __launch_bounds__(kTileThreads)
     inv_tile(const int32_t* q, const int32_t* cut, int cut_d0, int hp, int wp,
-             Plane ll, Plane dst, int hl, int wl, int n_tj, StatsArgs st) {
+             Plane ll, Plane dst, int hl, int wl, int n_tj) {
   __shared__ float s[kTileFloats];
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kWin + tx;
-  const int frame = blockIdx.y;
+  const int frame = blockIdx.y, z = blockIdx.z;
   const int ti = blockIdx.x / n_tj, tj = blockIdx.x % n_tj;
   const int h = hl >> 1, w = wl >> 1;
   const int bi = ti * kTI - kHalo, bj = tj * kTJ - kHalo;
+  const float* llf =
+      ll.p ? ll.p + z * ll.cut_stride + frame * ll.frame : nullptr;
   {
-    // Thread (tx, ty) copies window column tx, rows ty, ty + kRowsY, ...
-    // (the integers as raw bits), then dequantizes and scales its own.
-    const int fcut = __ldg(cut + frame / cut_d0);
-    const int32_t* qf = q + (size_t)frame * hp * wp;
-    const float* llf = ll.p ? ll.p + frame * ll.frame : nullptr;
-    const int hc = tx / kLJ;
-    const int gj = clampi(bj + tx % kLJ, 0, w - 1);
-    const int qcol = hc * w + gj;
-    const bool ll_col = llf != nullptr && hc == 0;
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr)
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const int gi = clampi(bi + ty + i * kRowsY, 0, h - 1);
-        float* d = s + (hr * kLI + ty + i * kRowsY) * kPitch + tx;
-        if (ll_col && hr == 0)
-          cp_async4(d, llf + (size_t)gi * ll.pitch + gj);
-        else
-          cp_async4(d, qf + (size_t)(hr * h + gi) * wp + qcol);
-      }
+    // The thread dequantizes and scales the entries it copied.
+    window_copy<true>(s, q + (size_t)frame * hp * wp, wp, llf, ll.pitch, bi,
+                      bj, h, w);
     cp_async_wait();
+    const Dequant dq = dequant_at(__ldg(cut + z + frame / cut_d0));
+    const bool ll_col = llf != nullptr && tx < kLJ;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
       for (int i = 0; i < kPerThread; ++i) {
         float* d = s + (hr * kLI + ty + i * kRowsY) * kPitch + tx;
         const float v = (ll_col && hr == 0) ? *d
-                                            : dequant(__float_as_int(*d), fcut);
+                                            : dequant(__float_as_int(*d), dq);
         *d = __fmul_rn(v, hr ? kXi : kInvXi);
       }
   }
@@ -418,54 +462,162 @@ __global__ void __launch_bounds__(kTileThreads)
   }
   // Output row 2i + hr is slot i of half hr; the same along the columns.
   const int r0 = 2 * ti * kTI, c0 = 2 * tj * kTJ;
-  Stats acc = stats_identity();
-  float sc = 0.0f, of = 0.0f, tg = 0.0f;
-  if (kStats) {
-    const int chunk = frame / st.d0;
-    sc = st.scale[chunk];
-    of = st.off[chunk];
-    tg = st.target[chunk];
-  }
-  float tv[kOutPerThread];
-  if (kStats) {
-#pragma unroll
-    for (int i = 0; i < kOutPerThread; ++i) {
-      const int idx = tid + i * kTileThreads;
-      const int gr = r0 + idx / (2 * kTJ), gc = c0 + idx % (2 * kTJ);
-      tv[i] = (idx < 4 * kTI * kTJ && gr < st.vh && gc < st.vw)
-                  ? __ldg(st.t + (size_t)frame * hp * wp + (size_t)gr * wp + gc)
-                  : 0.0f;
-    }
-  }
+  float* df = dst.p + z * dst.cut_stride + frame * dst.frame;
 #pragma unroll
   for (int i = 0; i < kOutPerThread; ++i) {
     const int idx = tid + i * kTileThreads;
     const int r = idx / (2 * kTJ), c = idx % (2 * kTJ);
-    const int gr = r0 + r, gc = c0 + c;
-    if (idx >= 4 * kTI * kTJ || gr >= (kStats ? st.vh : hl) ||
-        gc >= (kStats ? st.vw : wl))
-      continue;
-    const float v = s[((r & 1) * kLI + kHalo + (r >> 1)) * kPitch +
-                      (c & 1) * kLJ + kHalo + (c >> 1)];
-    if (kStats) {
-      const float err = __fsub_rn(tv[i], __fadd_rn(__fmul_rn(v, sc), of));
-      acc.sum += (double)err;
-      acc.mx = fmaxf(acc.mx, err);
-      acc.mn = fminf(acc.mn, err);
-      acc.bad += fabsf(err) > tg ? 1 : 0;
-    } else {
-      dst.p[frame * dst.frame + (size_t)gr * dst.pitch + gc] = v;
-    }
+    if (idx >= 4 * kTI * kTJ || r0 + r >= hl || c0 + c >= wl) continue;
+    df[(size_t)(r0 + r) * dst.pitch + c0 + c] =
+        s[((r & 1) * kLI + kHalo + (r >> 1)) * kPitch + (c & 1) * kLJ + kHalo +
+          (c >> 1)];
   }
-  if (kStats) {
-    const Stats red = block_reduce<kTileThreads>(acc, tid);
-    if (tid == 0) {
-      const size_t o = (size_t)frame * gridDim.x + blockIdx.x;
-      st.sum[o] = red.sum;
-      st.mx[o] = red.mx;
-      st.mn[o] = red.mn;
-      st.bad[o] = red.bad;
+}
+
+// Reduction of one Stats per lane over a warp, in a fixed order (lane l
+// takes lane l + o for o = 16, 8, 4, 2, 1); lane 0 returns the warp's.
+__device__ __forceinline__ Stats warp_reduce(Stats v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v.sum += __shfl_down_sync(0xffffffffu, v.sum, o);
+    v.mx = fmaxf(v.mx, __shfl_down_sync(0xffffffffu, v.mx, o));
+    v.mn = fminf(v.mn, __shfl_down_sync(0xffffffffu, v.mn, o));
+    v.bad += __shfl_down_sync(0xffffffffu, v.bad, o);
+  }
+  return v;
+}
+
+constexpr int kTileWarps = kTileThreads / 32;
+static_assert(kTileThreads % 32 == 0, "whole warps");
+constexpr int kLLPitch = kLJ + 1;     // odd, as kPitch
+constexpr int kLLFloats = kLI * kLLPitch;
+constexpr int kStatsOut = 2 * kSeg;   // outputs a row-pass thread reduces
+// curve_tile's dynamic shared memory: the warps' partials of every cut of
+// a group, q's raw window, the lifting window, two LL footprints.
+constexpr int kCurveSmem =
+    (int)(kCutGroup * kTileWarps * sizeof(Stats)) +
+    (2 * kTileFloats + 2 * kLLFloats) * (int)sizeof(float);
+
+// Copies a cut's LL footprint, window slots [0, kLI) x [0, kLJ) of the
+// level-1 plane at llf (row pitch llp, clamped into its (h, w)), to lb at
+// pitch kLLPitch; the whole block takes part.
+__device__ __forceinline__ void ll_copy(float* lb, const float* llf, int llp,
+                                        int bi, int bj, int h, int w) {
+  const int tid = threadIdx.y * kWin + threadIdx.x;
+  for (int e = tid; e < kLI * kLJ; e += kTileThreads) {
+    const int r = e / kLJ, c = e % kLJ;
+    cp_async4(lb + r * kLLPitch + c, llf + (size_t)clampi(bi + r, 0, h - 1) *
+                                               llp + clampi(bj + c, 0, w - 1));
+  }
+}
+
+// Level 0 of every cut of a group, with the error statistics (K3): one
+// block per 64x64 output tile of the valid region rows [0, vh) x cols
+// [0, vw) (blockIdx.x, n_tj per tile row) and frame (blockIdx.y) takes the
+// group's n_cuts cuts in turn.  q's window is copied once, as raw bits, to
+// `raw`, and each row-pass thread loads the targets of its 16 outputs once
+// into registers.  When ll.p is given, a cut's LL footprint comes from its
+// level-1 plane into one of two buffers, the next cut's copy overlapping
+// this cut's lifting.  Per cut, with the operations of inv_tile in the same
+// order: the column pass reads its segment from raw (dequantized at the
+// cut and scaled in registers) and the LL buffer, and stores it to s; the
+// row pass lifts the output rows from s and reduces err = t - (rec * scale
+// + off) over its valid outputs from registers, per warp in a fixed order;
+// the warps' partials are merged in order into the partial at (cut, frame,
+// tile) once all cuts are done.  Two barriers per cut.  Registers are
+// capped for kCurveBlocks blocks per SM: left alone, nvcc keeps every
+// cut-invariant address live and fits one block per SM (PERF.md).
+__global__ void __launch_bounds__(kTileThreads, kCurveBlocks)
+    curve_tile(const int32_t* q, const int32_t* cuts, int n_cuts, Plane ll,
+               int hp, int wp, int n_tj, StatsArgs st) {
+  extern __shared__ double curve_smem[];
+  Stats(*part)[kTileWarps] = (Stats(*)[kTileWarps])curve_smem;
+  float* raw = (float*)(part + kCutGroup);
+  float* s = raw + kTileFloats;
+  float* llb = s + kTileFloats;
+  const int tid = threadIdx.y * kWin + threadIdx.x;
+  const int frame = blockIdx.y;
+  const int ti = blockIdx.x / n_tj, tj = blockIdx.x % n_tj;
+  const int h = hp >> 1, w = wp >> 1;
+  const int bi = ti * kTI - kHalo, bj = tj * kTJ - kHalo;
+  const float* llf = ll.p ? ll.p + frame * ll.frame : nullptr;
+  window_copy<false>(raw, q + (size_t)frame * hp * wp, wp, llf, ll.pitch, bi,
+                     bj, h, w);
+  if (llf != nullptr) ll_copy(llb, llf, ll.pitch, bi, bj, h, w);
+  // Column pass: window column cc, segment from slot cf.  Row pass (threads
+  // below 2 * kTI * kSegs): window row j of the output rows, segment from
+  // slot rf, giving output row orow, columns ocol .. ocol + kStatsOut - 1.
+  const int cc = tid % kWin, cf = (tid / kWin) * kSeg;
+  const bool ll_col = llf != nullptr && cc < kLJ;
+  const bool row_thread = tid < 2 * kTI * kSegs;
+  const int j = tid % (2 * kTI), rf = (tid / (2 * kTI)) * kSeg;
+  const int orow = 2 * ti * kTI + 2 * (j % kTI) + j / kTI;
+  const int ocol = 2 * tj * kTJ + 2 * rf;
+  const int chunk = frame / st.d0;
+  const float sc = st.scale[chunk], of = st.off[chunk], tg = st.target[chunk];
+  float tv[kStatsOut];
+#pragma unroll
+  for (int n = 0; n < kStatsOut; ++n)
+    tv[n] = (row_thread && orow < st.vh && ocol + n < st.vw)
+                ? __ldg(st.t + (size_t)frame * hp * wp + (size_t)orow * wp +
+                        ocol + n)
+                : 0.0f;
+  for (int k = 0; k < n_cuts; ++k) {
+    cp_async_wait();  // this thread's copies of this cut's LL (and q's)
+    __syncthreads();  // everyone's; the last cut's row pass has read s
+    const float* lb = llb + (k & 1) * kLLFloats;
+    if (llf != nullptr && k + 1 < n_cuts)
+      ll_copy(llb + ((k + 1) & 1) * kLLFloats,
+              llf + (k + 1) * ll.cut_stride, ll.pitch, bi, bj, h, w);
+    const Dequant dq = dequant_at(__ldg(cuts + k));
+    {
+      Seg g;
+#pragma unroll
+      for (int m = 0; m < kSegIn; ++m) {
+        const int rr = cf + m;
+        float lo;
+        if (ll_col)
+          lo = lb[rr * kLLPitch + cc];
+        else
+          lo = dequant(__float_as_int(raw[rr * kPitch + cc]), dq);
+        g.e[m] = __fmul_rn(lo, kInvXi);
+        g.o[m] = __fmul_rn(
+            dequant(__float_as_int(raw[(kLI + rr) * kPitch + cc]), dq), kXi);
+      }
+      seg_lift<true>(g, bi + cf, h, cc < kLJ ? kInvXi : kXi);
+      seg_store<false>(g, s + cc, s + kLI * kPitch + cc, kPitch, cf, kLI);
     }
+    __syncthreads();
+    Stats acc = stats_identity();
+    if (row_thread) {
+      const float* row = s + ((j / kTI) * kLI + kHalo + j % kTI) * kPitch;
+      Seg g;
+      seg_load<false>(g, row, row + kLJ, 1, rf, kLI);
+      seg_lift<true>(g, bj + rf, w, 1.0f);
+#pragma unroll
+      for (int n = 0; n < kStatsOut; ++n) {
+        if (orow >= st.vh || ocol + n >= st.vw) continue;
+        const float v = (n & 1) ? g.o[kHalo + n / 2] : g.e[kHalo + n / 2];
+        const float err = __fsub_rn(tv[n], __fadd_rn(__fmul_rn(v, sc), of));
+        acc.sum += (double)err;
+        acc.mx = fmaxf(acc.mx, err);
+        acc.mn = fminf(acc.mn, err);
+        acc.bad += fabsf(err) > tg ? 1 : 0;
+      }
+    }
+    const Stats wr = warp_reduce(acc);
+    if (tid % 32 == 0) part[k][tid / 32] = wr;
+  }
+  __syncthreads();
+  if (tid < n_cuts) {
+    Stats red = part[tid][0];
+#pragma unroll
+    for (int v = 1; v < kTileWarps; ++v) stats_merge(red, part[tid][v]);
+    const size_t o = ((size_t)tid * gridDim.y + frame) * gridDim.x + blockIdx.x;
+    st.sum[o] = red.sum;
+    st.mx[o] = red.mx;
+    st.mn[o] = red.mn;
+    st.bad[o] = red.bad;
   }
 }
 
@@ -621,11 +773,12 @@ __global__ void __launch_bounds__(kCoarseSide* kCoarseSide)
   }
 }
 
-// Inverse levels levels-1 down to lc of one frame per block.  `a` holds
-// the level's Mallat block (its LL the previous level's output), the
-// halves scaled for the column pass; the column pass writes interleaved
-// rows to `b`, the row pass interleaved columns back to `a`, which then
-// holds the level's spatial block.  That of level lc goes to dst.
+// Inverse levels levels-1 down to lc of one frame per block (blockIdx.x;
+// blockIdx.y = K3's cut within its group, 0 for K2).  `a` holds the
+// level's Mallat block (its LL the previous level's output), the halves
+// scaled for the column pass; the column pass writes interleaved rows to
+// `b`, the row pass interleaved columns back to `a`, which then holds the
+// level's spatial block.  That of level lc goes to dst.
 __global__ void __launch_bounds__(kCoarseSide* kCoarseSide)
     inv_coarse(const int32_t* q, const int32_t* cut, int cut_d0, int hp,
                int wp, int lc, int levels, Plane dst) {
@@ -634,8 +787,8 @@ __global__ void __launch_bounds__(kCoarseSide* kCoarseSide)
   const int tx = threadIdx.x, ty = threadIdx.y;
   float* a = smem;
   float* b = smem + H0 * P;
-  const int frame = blockIdx.x;
-  const int fcut = __ldg(cut + frame / cut_d0);
+  const int frame = blockIdx.x, z = blockIdx.y;
+  const Dequant dq = dequant_at(__ldg(cut + z + frame / cut_d0));
   const int32_t* qf = q + (size_t)frame * hp * wp;
   // The integers of every coarse level, as raw bits, into `a`: each level
   // consumes its own (hl, wl) block before its passes write over it, and
@@ -652,7 +805,7 @@ __global__ void __launch_bounds__(kCoarseSide* kCoarseSide)
         const float x = a[r * P + c];
         const float v = (l + 1 < levels && r < h && c < w)
                             ? x
-                            : dequant(__float_as_int(x), fcut);
+                            : dequant(__float_as_int(x), dq);
         a[r * P + c] = __fmul_rn(v, r < h ? kInvXi : kXi);
       }
     __syncthreads();
@@ -662,7 +815,7 @@ __global__ void __launch_bounds__(kCoarseSide* kCoarseSide)
     // rows: columns k, w + k of row j -> columns 2k, 2k+1 of a
     coarse_pass<true>(b, w, P, 1, a, a + 1, P, 2, hl, w, 1.0f, 1.0f);
   }
-  float* df = dst.p + frame * dst.frame;
+  float* df = dst.p + z * dst.cut_stride + frame * dst.frame;
   for (int r = ty; r < H0; r += kCoarseSide)
     for (int c = tx; c < W0; c += kCoarseSide)
       df[(size_t)r * dst.pitch + c] = a[r * P + c];
@@ -681,7 +834,7 @@ __global__ void curve_reduce(const double* p_sum, const float* p_mx,
   for (int r = threadIdx.x; r < n_parts; r += blockDim.x)
     stats_merge(acc, Stats{p_sum[r0 + r], p_mx[r0 + r], p_mn[r0 + r],
                            p_bad[r0 + r]});
-  const Stats v = block_reduce<kReduceThreads>(acc, threadIdx.x);
+  const Stats v = block_reduce(acc, threadIdx.x);
   if (threadIdx.x == 0) {
     out[cell * 4 + 0] = v.sum;
     out[cell * 4 + 1] = (double)v.mx;
@@ -715,27 +868,36 @@ int coarse_from(int hp, int wp, int levels, int lmin) {
 const dim3 kTileBlock(kWin, kRowsY);
 const dim3 kCoarseBlock(kCoarseSide, kCoarseSide);
 
+// Floats of the level planes of n_frames frames (levels >= 1).
+size_t scratch_floats(int n_frames, int hp, int wp) {
+  return (size_t)n_frames *
+         ((size_t)(hp >> 1) * (wp >> 1) + (size_t)(hp >> 2) * (wp >> 2));
+}
+
 // The compact plane of level l >= 1 (its (hp>>l) x (wp>>l) blocks) in the
 // scratch buffer: odd levels in the first part (n_frames planes of
 // (hp/2) x (wp/2) floats), even levels after it, so a level never reads
-// the plane it writes.
+// the plane it writes.  K3's cut z of a group has its planes at
+// scratch + z * scratch_floats.
 Plane level_plane(float* scratch, int n_frames, int hp, int wp, int l) {
   const size_t first = (size_t)n_frames * (hp >> 1) * (wp >> 1);
   return Plane{(l & 1) ? scratch : scratch + first,
-               (size_t)(hp >> l) * (wp >> l), wp >> l};
+               (size_t)(hp >> l) * (wp >> l), wp >> l,
+               scratch_floats(n_frames, hp, wp)};
 }
 
-dim3 tile_grid(int hl, int wl, int n_frames, int* n_tj) {
+dim3 tile_grid(int hl, int wl, int n_frames, int n_cuts, int* n_tj) {
   const int n_ti = ((hl >> 1) + kTI - 1) / kTI;
   *n_tj = ((wl >> 1) + kTJ - 1) / kTJ;
-  return dim3(n_ti * *n_tj, n_frames);
+  return dim3(n_ti * *n_tj, n_frames, n_cuts);
 }
 
-// Inverse levels levels-1 down to lo; level 0's output goes to out, every
-// other level's to its scratch plane.
+// Inverse levels levels-1 down to lo of n_cuts cuts (cut[z + frame /
+// cut_d0] for cut z), one launch per level; level 0's output goes to out
+// (n_cuts = 1), every other level's to its scratch plane.
 int inverse_levels(const int32_t* q, const int32_t* cut, int cut_d0,
-                   float* scratch, Plane out, int n_frames, int hp, int wp,
-                   int levels, int lo, cudaStream_t st) {
+                   float* scratch, Plane out, int n_frames, int n_cuts,
+                   int hp, int wp, int levels, int lo, cudaStream_t st) {
   auto plane = [&](int l) {
     return l == 0 ? out : level_plane(scratch, n_frames, hp, wp, l);
   };
@@ -744,20 +906,18 @@ int inverse_levels(const int32_t* q, const int32_t* cut, int cut_d0,
     const int bytes = (int)coarse_bytes(hp, wp, lc);
     int err = set_smem((const void*)inv_coarse, bytes);
     if (err) return err;
-    inv_coarse<<<n_frames, kCoarseBlock, bytes, st>>>(q, cut, cut_d0, hp,
-                                                       wp, lc, levels,
-                                                       plane(lc));
+    inv_coarse<<<dim3(n_frames, n_cuts), kCoarseBlock, bytes, st>>>(
+        q, cut, cut_d0, hp, wp, lc, levels, plane(lc));
     err = (int)cudaGetLastError();
     if (err) return err;
   }
   for (int l = lc - 1; l >= lo; --l) {
     const int hl = hp >> l, wl = wp >> l;
     int n_tj;
-    const dim3 grid = tile_grid(hl, wl, n_frames, &n_tj);
+    const dim3 grid = tile_grid(hl, wl, n_frames, n_cuts, &n_tj);
     const Plane ll = l + 1 < levels ? plane(l + 1) : Plane{nullptr, 0, 0};
-    inv_tile<false><<<grid, kTileBlock, 0, st>>>(q, cut, cut_d0, hp, wp, ll,
-                                               plane(l), hl, wl, n_tj,
-                                               StatsArgs{});
+    inv_tile<<<grid, kTileBlock, 0, st>>>(q, cut, cut_d0, hp, wp, ll,
+                                          plane(l), hl, wl, n_tj);
     const int err = (int)cudaGetLastError();
     if (err) return err;
   }
@@ -768,11 +928,22 @@ int inverse_levels(const int32_t* q, const int32_t* cut, int cut_d0,
 
 extern "C" {
 
-// Floats of scratch the entry points below need for n_frames frames.
+// Floats of scratch the forward and inverse transforms of n_frames frames
+// need.
 long long ebcc_dwt97_scratch_floats(int n_frames, int hp, int wp) {
-  return (long long)n_frames *
-         ((long long)(hp >> 1) * (wp >> 1) + (long long)(hp >> 2) * (wp >> 2));
+  return (long long)scratch_floats(n_frames, hp, wp);
 }
+
+// Floats of scratch ebcc_curve_stats needs for a grid of n_cuts cuts: the
+// level planes of one group of cuts.
+long long ebcc_curve_scratch_floats(int n_cuts, int n_frames, int hp,
+                                    int wp) {
+  return (long long)(n_cuts < kCutGroup ? n_cuts : kCutGroup) *
+         (long long)scratch_floats(n_frames, hp, wp);
+}
+
+// Cuts per group of ebcc_curve_stats' launches.
+int ebcc_curve_cut_group() { return kCutGroup; }
 
 // Number of per-(cut, frame) partials of ebcc_curve_stats for a valid
 // region of (vh, vw): one per 64x64 output tile of level 0 covering it.
@@ -796,7 +967,7 @@ int ebcc_dwt2d_forward(const float* x, float* scratch, float* out, int32_t* q,
   for (int l = 0; l < lc; ++l) {
     const int hl = hp >> l, wl = wp >> l;
     int n_tj;
-    const dim3 grid = tile_grid(hl, wl, n_frames, &n_tj);
+    const dim3 grid = tile_grid(hl, wl, n_frames, 1, &n_tj);
     const int last = l == levels - 1;
     const Plane ll = last ? Plane{nullptr, 0, 0} : plane(l + 1);
     if (q != nullptr)
@@ -833,18 +1004,19 @@ int ebcc_idwt2d_dequant(const int32_t* q, const int32_t* cut, float* scratch,
                         float* out, int n_frames, int d0, int hp, int wp,
                         int levels, void* stream) {
   return inverse_levels(q, cut, d0, scratch, Plane{out, (size_t)hp * wp, wp},
-                        n_frames, hp, wp, levels, 0, (cudaStream_t)stream);
+                        n_frames, 1, hp, wp, levels, 0, (cudaStream_t)stream);
 }
 
 // Error-vs-cut statistics (K3).  For each of the n_cuts cuts in `cuts`
-// (device int32): reconstruct every frame as K2 does at that cut, levels
-// levels-1 .. 1 into `scratch` (ebcc_dwt97_scratch_floats floats), with
-// the level-0 tile kernel computing, for the valid region rows [0, vh) x
-// cols [0, vw), err = t - (rec * scale[chunk] + off[chunk]) and its tile
-// partials (part_* arrays of n_cuts * n_frames * ebcc_curve_parts(vh, vw)
-// entries); then one launch reduces the partials of each (cut, frame) into
-// out (n_cuts, n_frames, 4) float64: sum, max, min, count(|err| >
-// target[chunk]).  chunk = frame / d0.
+// (device int32, any order, repeats taken), in groups of kCutGroup cuts:
+// levels levels-1 .. 1 of every frame as K2 reconstructs them at each cut
+// of the group, one launch per level, into `scratch`
+// (ebcc_curve_scratch_floats floats); then curve_tile, for the valid
+// region rows [0, vh) x cols [0, vw), err = t - (rec * scale[chunk] +
+// off[chunk]) and its tile partials (part_* arrays of n_cuts * n_frames *
+// ebcc_curve_parts(vh, vw) entries).  Last, one launch reduces the partials
+// of each (cut, frame) into out (n_cuts, n_frames, 4) float64: sum, max,
+// min, count(|err| > target[chunk]).  chunk = frame / d0.
 int ebcc_curve_stats(const int32_t* q, const float* t, const int32_t* cuts,
                      const float* scale, const float* off,
                      const float* target, float* scratch, double* part_sum,
@@ -857,18 +1029,20 @@ int ebcc_curve_stats(const int32_t* q, const float* t, const int32_t* cuts,
   const size_t per_cut = (size_t)n_frames * n_ti * n_tj;
   const Plane ll = levels > 1 ? level_plane(scratch, n_frames, hp, wp, 1)
                               : Plane{nullptr, 0, 0};
-  for (int k = 0; k < n_cuts; ++k) {
-    // cut_d0 = n_frames: every frame reads its cut from cuts[k].
+  for (int k = 0; k < n_cuts; k += kCutGroup) {
+    const int n = n_cuts - k < kCutGroup ? n_cuts - k : kCutGroup;
+    // cut_d0 = n_frames: every frame of cut z reads cuts[k + z].
     int err = inverse_levels(q, cuts + k, n_frames, scratch,
-                             Plane{nullptr, 0, 0}, n_frames, hp, wp, levels,
-                             1, st);
+                             Plane{nullptr, 0, 0}, n_frames, n, hp, wp,
+                             levels, 1, st);
     if (err) return err;
     const StatsArgs sa{t, scale, off, target, d0, vh, vw,
                        part_sum + k * per_cut, part_mx + k * per_cut,
                        part_mn + k * per_cut, part_bad + k * per_cut};
-    inv_tile<true><<<dim3(n_ti * n_tj, n_frames), kTileBlock, 0, st>>>(
-        q, cuts + k, n_frames, hp, wp, ll, Plane{nullptr, 0, 0}, hp, wp, n_tj,
-        sa);
+    err = set_smem((const void*)curve_tile, kCurveSmem);
+    if (err) return err;
+    curve_tile<<<dim3(n_ti * n_tj, n_frames), kTileBlock, kCurveSmem, st>>>(
+        q, cuts + k, n, ll, hp, wp, n_tj, sa);
     err = (int)cudaGetLastError();
     if (err) return err;
   }

@@ -9,7 +9,8 @@
 * :func:`idwt2d_dequant` replaces K2, ``idwt2d_dequant_pallas``: per-chunk
   cut dequantization fused into the multi-level inverse transform.
 * :func:`curve_stats` replaces K3, ``curve_stats_pallas``: the error
-  statistics of every cut of a grid, for the fused coarse cut sweep.
+  statistics of every cut of a grid, for the fused coarse cut sweep, with
+  every cut lifted from one load of q and t.
 
 The kernels are CUDA C++ for sm_90a in ``ebcc_tpu_torch/csrc/dwt97.cu``
 (design, bound and arithmetic notes there), built by ``ops/_build.py`` at
@@ -18,8 +19,8 @@ carry their own 2-sample halo in a fixed 20.5 KB of shared memory, so
 frames of any padded height and width are taken; the coarse levels whose
 whole block fits in one block's shared memory run together in one more
 launch (a 5-level call at 736x1440 is 4 launches, a 3-level call 3).  The
-kernels need a work buffer of 5/16 of the frames' samples, which the
-wrappers allocate.
+kernels need a work buffer of 5/16 of the frames' samples (K3: that per cut
+of a group of up to 8 cuts), which the wrappers allocate.
 
 A CUDA tensor goes to the kernel, and anything the kernel does not take
 raises; a CPU tensor goes to the plain PyTorch version beside each wrapper
@@ -94,6 +95,10 @@ def _lib():
             lib.ebcc_curve_stats.restype = i
             lib.ebcc_dwt97_scratch_floats.argtypes = [i, i, i]
             lib.ebcc_dwt97_scratch_floats.restype = ctypes.c_longlong
+            lib.ebcc_curve_scratch_floats.argtypes = [i, i, i, i]
+            lib.ebcc_curve_scratch_floats.restype = ctypes.c_longlong
+            lib.ebcc_curve_cut_group.argtypes = []
+            lib.ebcc_curve_cut_group.restype = i
             lib.ebcc_curve_parts.argtypes = [i, i]
             lib.ebcc_curve_parts.restype = i
             lib._ebcc_sigs = True
@@ -257,18 +262,40 @@ def _chunk_vector(v, b: int, device):
     return v.contiguous()
 
 
+def curve_cut_group() -> int:
+    """Cuts per group of K3's launches (a constant of the CUDA source)."""
+    return _lib().ebcc_curve_cut_group()
+
+
 def curve_stats(q, t, scale, off, target, *, levels: int, cut_grid,
                 valid_hw):
     """Error-vs-cut statistics curve (K3).
 
     q: (B, D0, Hp, Wp) int32 coefficients; t: (B, D0, Hp, Wp) float32
     target frames (the pad region is masked out); scale, off, target:
-    per-chunk (B,) float32.  For each cut of ``cut_grid`` the error is
-    ``t - (idwt(dequant(q, cut)) * scale + off)`` over the valid
-    ``valid_hw`` region.  Returns (n_cuts, B, D0, 4) float64 rows [sum, max,
-    min, count(|err| > target)]: max, min and count exact, the sum
-    accumulated in float64 in a fixed order.  CPU tensors take
-    :func:`curve_stats_plain`."""
+    per-chunk (B,) float32.  For each cut of ``cut_grid`` (any order,
+    repeats taken) the error is ``t - (idwt(dequant(q, cut)) * scale +
+    off)`` over the valid ``valid_hw`` region.  Returns (n_cuts, B, D0, 4)
+    float64 rows [sum, max, min, count(|err| > target)]: max, min and count
+    exact, the sum accumulated in float64 in a fixed order, so a cut's row
+    depends neither on the batch nor on the other cuts of the grid.  CPU
+    tensors take :func:`curve_stats_plain`.
+
+    The kernel runs the cuts in groups of :func:`curve_cut_group` (8): per
+    group, levels ``levels-1 .. 1`` of all its cuts in one launch per level,
+    then one level-0 launch whose block per (64x64 tile, frame) copies q's
+    window and loads t once and lifts every cut of the group from them,
+    reducing each cut's error into per-tile partials; one last launch sums
+    the partials in a fixed order.  A base call (5 levels, 8 cuts) at
+    (4, 1, 736, 1440) is 5 launches, a residual call (3 levels) 4.  Scratch:
+    ``min(n_cuts, 8) * 5/16`` of the frames' samples in float32 (42 MB for
+    8 cuts at (4, 1, 736, 1440)), plus 20 bytes per (cut, frame, tile)
+    partial.  Bound: its float32 operations, one instruction each (no FMA
+    contraction), about 0.034 ms for that base call on an H100.  What holds
+    it back: the lifting itself, ~17 us per cut at level 0 (as much as a
+    K2 level-0 launch), the tiles' halos and overlapping segments lifting
+    1.7-1.9x the samples the outputs need (``csrc/dwt97.cu``, ``PERF.md``).
+    """
     if q.device.type == "cpu":
         return curve_stats_plain(q, t, scale, off, target, levels=levels,
                                  cut_grid=cut_grid, valid_hw=valid_hw)
@@ -288,7 +315,9 @@ def curve_stats(q, t, scale, off, target, *, levels: int, cut_grid,
     scale, off, target = (_chunk_vector(v, b, q.device)
                           for v in (scale, off, target))
     dev = q.device
-    scratch = _scratch(lib, q)
+    scratch = torch.empty(
+        lib.ebcc_curve_scratch_floats(n_cuts, n_frames, hp, wp),
+        dtype=torch.float32, device=dev)
     n_parts = n_cuts * n_frames * lib.ebcc_curve_parts(vh, vw)
     part_sum = torch.empty(n_parts, dtype=torch.float64, device=dev)
     part_mx = torch.empty(n_parts, dtype=torch.float32, device=dev)

@@ -5,7 +5,8 @@ inside one call.
 
 For each kernel, at the main path's shape (4, 1, 736, 1440) and at the tall
 frame (4, 1, 1824, 3616) of a 1801x3600 grid, on the inputs ``chip_smoke.py``
-builds (K3: the base call, 5 levels and 8 cuts, over the valid region):
+builds (K3: the base call, 5 levels and 8 cuts, and the residual call, 3
+levels and 5 cuts on the input modulo 255, over the valid region):
 the median time of one wrapper call between two CUDA events (the
 smoke's ``ms``, the wrapper's host work included), and from
 ``torch.profiler`` the CUDA kernels one call launches and the device span of
@@ -88,11 +89,15 @@ def main():
         u = cs.scaled_input(torch, src, shape)
         calls = {k: fn for k, (fn, _, _) in
                  cs.kernel_calls(torch, dh, u, gen).items()}
-        q5 = dh.dwt2d_quantize_plain(u, 5)
-        k3 = (q5, u) + tuple(torch.full((shape[0],), v, device=u.device)
-                             for v in (1.0, 0.0, 0.5))
-        kw = dict(levels=5, cut_grid=cs.BASE_GRID, valid_hw=valid)
-        calls["curve_stats"] = lambda k3=k3, kw=kw: dh.curve_stats(*k3, **kw)
+        r = (u % 255.0).contiguous()
+        for name, levels, grid, t, target in (
+                ("curve_stats", 5, cs.BASE_GRID, u, 0.5),
+                ("curve_stats L3", 3, cs.RES_GRID, r, 0.05)):
+            k3 = (dh.dwt2d_quantize_plain(t, levels), t) + tuple(
+                torch.full((shape[0],), v, device=u.device)
+                for v in (1.0, 0.0, target))
+            kw = dict(levels=levels, cut_grid=grid, valid_hw=valid)
+            calls[name] = lambda k3=k3, kw=kw: dh.curve_stats(*k3, **kw)
         for name, fn in calls.items():
             key = f"{name} {shape}"
             try:

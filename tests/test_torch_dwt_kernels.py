@@ -144,13 +144,26 @@ def _curve_inputs(shape):
     return q, t, scale, off, target
 
 
-@pytest.mark.parametrize("shape,levels,hw", [
-    ((2, 1, 64, 64), 3, (50, 60)),
-    ((1, 2, 32, 64), 2, (32, 64)),
+RES_CUTS = tuple(range(12, -1, -3))          # 12, 9, 6, 3, 0
+BASE_CUTS = tuple(range(21, -1, -3))         # 21, 18, ..., 3, 0
+UNORDERED_CUTS = (0, 6, 6, 12)
+
+
+@pytest.mark.parametrize("shape,levels,hw,cuts", [
+    pytest.param((2, 1, 64, 64), 3, (50, 60), RES_CUTS, id="shape0-3-hw0"),
+    pytest.param((1, 2, 32, 64), 2, (32, 64), RES_CUTS, id="shape1-2-hw1"),
+    pytest.param((2, 1, 64, 64), 3, (50, 60), (7,), id="one-cut"),
+    pytest.param((2, 1, 64, 64), 3, (50, 60), tuple(range(12, -1, -1)),
+                 id="every-residual-plane"),
+    pytest.param((1, 2, 32, 64), 2, (32, 64), UNORDERED_CUTS,
+                 id="unordered-with-repeat"),
+    pytest.param((1, 1, 64, 96), 5, (60, 90), BASE_CUTS, id="base-grid-L5"),
 ])
-def test_curve_stats_plain_matches_pallas_interpret(shape, levels, hw):
+def test_curve_stats_plain_matches_pallas_interpret(shape, levels, hw, cuts):
     """K3's plain version against ``curve_stats_pallas`` run in interpret
-    mode, at the shapes of ``tests/test_dwt.py``.  Tolerance ``tol`` is the
+    mode, at the shapes of ``tests/test_dwt.py`` and the grids the kernel
+    must take: one cut, every residual plane, a grid in no order with a
+    repeated cut, the base call's grid at 5 levels.  Tolerance ``tol`` is the
     one this file holds K2 to, ``1e-5`` of the largest reconstruction
     magnitude (XLA contracts the lifting multiply-adds into FMAs): max and
     min agree within ``tol``; counts are equal except for samples whose
@@ -158,7 +171,6 @@ def test_curve_stats_plain_matches_pallas_interpret(shape, levels, hw):
     float32, so sums agree within ``tol`` times the sample count plus
     ``1e-5`` of the sum of |err|."""
     q, t, scale, off, target = _curve_inputs(shape)
-    cuts = tuple(range(12, -1, -3))
     ref = np.asarray(jp.curve_stats_pallas(
         jnp.asarray(q), jnp.asarray(t), scale, off, target, levels=levels,
         cut_grid=cuts, valid_hw=hw, interpret=True))
@@ -185,6 +197,32 @@ def test_curve_stats_plain_matches_pallas_interpret(shape, levels, hw):
         abs_sum = np.abs(err).sum(axis=(2, 3), dtype=np.float64)
         assert np.all(np.abs(got[k, ..., 0] - ref[k, ..., 0])
                       <= tol * h * w + 1e-5 * abs_sum)
+
+
+@pytest.mark.parametrize("levels", [3, 5])
+@pytest.mark.parametrize("cuts", [RES_CUTS, UNORDERED_CUTS, (21, 0, 21)],
+                         ids=["descending", "unordered", "repeat-ends"])
+def test_curve_stats_rows_independent_of_grid_and_batch(levels, cuts):
+    """The contract the kernel is held to on the card, on the plain path:
+    each row of a grid equals a one-cut call's row at that cut, and a
+    frame's rows do not depend on the other frames of the batch (max, min
+    and count exactly; PyTorch's CPU float64 sum may split its reduction
+    otherwise for another batch, so the sum within 1e-12 of n * max|err|)."""
+    q, t, scale, off, target = (torch.from_numpy(v) for v in
+                                _curve_inputs((3, 1, 64, 96)))
+    kw = dict(levels=levels, valid_hw=(61, 90))
+    got = th.curve_stats(q, t, scale, off, target, cut_grid=cuts, **kw)
+    assert got.shape == (len(cuts), 3, 1, 4)
+    for k, cut in enumerate(cuts):
+        one = th.curve_stats(q, t, scale, off, target, cut_grid=(cut,), **kw)
+        torch.testing.assert_close(got[k], one[0], rtol=0, atol=0)
+    alone = th.curve_stats(q[1:2], t[1:2], scale[1:2], off[1:2], target[1:2],
+                           cut_grid=cuts, **kw)
+    torch.testing.assert_close(got[:, 1:2, ..., 1:], alone[..., 1:], rtol=0,
+                               atol=0)
+    n_maxabs = 61 * 90 * float(alone[..., 1:3].abs().max())
+    assert float((got[:, 1:2, ..., 0] - alone[..., 0]).abs().max()) <= \
+        1e-12 * n_maxabs
 
 
 def test_cut_vector_must_match_batch():
@@ -231,13 +269,16 @@ def test_cuda_kernels_match_plain(base_test_data):
         th.dwt2d_quantize(x[..., :, :100].contiguous(), 5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [
+EDGE_SHAPES = [
     (2, 1, 96, 160),      # not a multiple of the 64x64 tile
     (1, 2, 224, 416),
     (1, 1, 32, 64),       # levels shrink to 1-2 samples per half
     (4, 1, 1824, 3616),   # a 1801x3600 grid, padded: taller than 1816 rows
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
 def test_cuda_kernels_match_plain_at_edge_shapes(shape):
     """The kernels at tile and level edges, with the rules of
     ``test_cuda_kernels_match_plain``."""
@@ -271,3 +312,61 @@ def test_cuda_kernels_match_plain_at_edge_shapes(shape):
             want[..., 1:3].abs().max())
         assert float((got[..., 0] - want[..., 0]).abs().max()) <= \
             1e-12 * n_maxabs
+
+
+def _edge_curve_inputs(shape, levels):
+    """K3's inputs at an edge shape on the card: the frame as its own
+    target, unit scale, a valid region short of the padding."""
+    dev = torch.device("cuda")
+    x = torch.from_numpy(np.random.default_rng(6).random(shape) * 65535.0)
+    x = x.to(torch.float32).to(dev)
+    ones = torch.ones(shape[0], device=dev)
+    args = (th.dwt2d_quantize_plain(x, levels), x, ones, 0 * ones,
+            0.5 * ones)
+    return args, (shape[2] - 3, shape[3] - 5)
+
+
+CURVE_GRIDS = {"1-cut": (9,), "5-cuts": RES_CUTS, "8-cuts": BASE_CUTS,
+               "22-cuts": tuple(range(21, -1, -1))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", list(CURVE_GRIDS))
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_cuda_curve_stats_grids(shape, grid):
+    """K3 over grids of 1, 5, 8 and 22 cuts (the last crosses cut groups)
+    at 3 and 5 levels, with the rules of ``test_cuda_kernels_match_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels build with nvcc)")
+    cuts = CURVE_GRIDS[grid]
+    if grid == "22-cuts":
+        assert len(cuts) > th.curve_cut_group()
+    for levels in (3, 5):
+        args, hw = _edge_curve_inputs(shape, levels)
+        kw = dict(levels=levels, cut_grid=cuts, valid_hw=hw)
+        got = th.curve_stats(*args, **kw)
+        want = th.curve_stats_plain(*args, **kw)
+        assert got.shape == (len(cuts),) + shape[:2] + (4,)
+        torch.testing.assert_close(got[..., 1:], want[..., 1:], rtol=0,
+                                   atol=0)
+        n_maxabs = hw[0] * hw[1] * float(want[..., 1:3].abs().max())
+        assert float((got[..., 0] - want[..., 0]).abs().max()) <= \
+            1e-12 * n_maxabs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_cuda_curve_stats_rows_independent_of_grid(shape):
+    """Each row of an unordered grid with a repeated cut, and of a grid one
+    cut longer than a cut group, equals bit for bit the row of a one-cut
+    call at that cut."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels build with nvcc)")
+    crossing = tuple(range(th.curve_cut_group(), -1, -1))
+    for levels, cuts in ((5, UNORDERED_CUTS), (3, crossing)):
+        args, hw = _edge_curve_inputs(shape, levels)
+        kw = dict(levels=levels, valid_hw=hw)
+        got = th.curve_stats(*args, cut_grid=cuts, **kw)
+        for k, cut in enumerate(cuts):
+            one = th.curve_stats(*args, cut_grid=(cut,), **kw)
+            torch.testing.assert_close(got[k], one[0], rtol=0, atol=0)
