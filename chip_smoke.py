@@ -50,8 +50,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 7. 4 frames of 1801x3600 (a 0.1-degree grid, padded to 1824x3616) through
    ``roundtrip_frames_device`` at MAX_ERROR 0.5; the bound is checked on the
    card and K1 and K2 must have launched.
+8. Rate mode (RESIDUAL_NONE, the config's default): K1 must equal the
+   truncation of its float variant at (4, 1, 736, 1440), bit for bit (rate
+   mode takes K1); the 32 frames through ``roundtrip_frames_device`` at
+   base_cr 30, sub-batches of 4: every stream within raw bytes / 30, the
+   budget use, max error and RMSE printed, the decode again bit-equal, the
+   first 4 frames byte-identical one at a time, K1 and K2 launched.  Under
+   STORE a base_cr 30 budget holds at most one plane, so 8 frames at
+   base_cr 4 take the cut search deeper; a 128x256 input at base_cr 8
+   must make the same cut and flags on the CPU and on the card.
+9. Temporal mode: 4 chunks of 8 frames (frame c advected 0.7 samples per
+   step plus a drift) at MAX_ERROR 0.5 through ``roundtrip_frames_device``,
+   sub-batches of 2 chunks: every frame within 0.5, the decode equal bit
+   for bit to the reconstruction the encoder carried, a chunk alone
+   byte-identical to the same chunk in the batch, ``decode`` of one stream
+   on the card agrees; stream bytes beside an intra encode of the same
+   frames and the delta frames skipped; K1, its float variant and K2
+   launched.
+10. Lossless mode: 8 frames (2 chunks of 4) with NaN, +-Inf and -0.0, a
+    tensor on the card through ``encode_frames_device`` and
+    ``decode_frames_device``: bit-exact, no kernel launched (host work).
 
-Phases 3, 5 and 7 print the total stream bytes of their roundtrips.
+Phases 3, 5, 7, 8 and 9 print the total stream bytes or the budget use of
+their roundtrips, and phases 3, 8 and 9 the launches of each kernel in the
+run.
 
 The line before the last is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -714,6 +736,213 @@ def phase_tall(torch, et, dh, tall, card):
         raise AssertionError(f"kernels not launched: {missing}")
 
 
+def backend_name():
+    from ebcc_tpu_torch.core import entropy
+    return ("zstd" if entropy.default_backend() == entropy.BACKEND_ZSTD
+            else "STORE")
+
+
+def rate_roundtrip(torch, et, dh, x, base_cr, card):
+    """One rate-mode roundtrip of ``x`` (B, 1, H, W) on the card, sub-batches
+    of 4: every stream within raw bytes / base_cr, the decode again through
+    ``decode_frames_device`` bit-equal.  Returns (config, streams,
+    launches)."""
+    from ebcc_tpu_torch.core import stream
+    n = x.shape[0]
+    config = et.CodecConfig(dims=(n, H, W), base_cr=base_cr,
+                            chunk_dims=(1, H, W), zstd_level=3)
+    if config.residual_mode != et.RESIDUAL_NONE:
+        raise AssertionError("rate mode is not the config's default")
+    opts = et.EncodeOptions()
+    et.roundtrip_frames_device(x[:4], config, opts, max_batch=4)
+    torch.cuda.synchronize()
+    dh.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams, dec = et.roundtrip_frames_device(x, config, opts, max_batch=4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dh.launch_counts()
+    if not (dec.shape == x.shape and bool(torch.isfinite(dec).all())):
+        raise AssertionError("rate roundtrip: bad decoded batch")
+    limit = H * W * 4 / base_cr
+    over = [i for i, s in enumerate(streams) if len(s) > limit]
+    if over:
+        raise AssertionError(f"rate streams {over} exceed {limit} bytes")
+    if not torch.equal(dec, et.decode_frames_device(streams, max_batch=4)):
+        raise AssertionError("rate: decode_frames_device differs from the "
+                             "roundtrip's decode")
+    err = x - dec
+    cuts = sorted({stream.split_frame_stream(s)[0].base_cut
+                   for s in streams})
+    partial = sum(bool(stream.split_frame_stream(s)[0].flags
+                       & stream.FLAG_BASE_PARTIAL) for s in streams)
+    print(f"rate mode base_cr {base_cr} on {card}: {n} frames, roundtrip "
+          f"{wall:.4f} s, budget use "
+          f"{sum(len(s) for s in streams) / (n * limit):.6f}, max error "
+          f"{float(err.abs().max()):.6f}, RMSE "
+          f"{float(err.pow(2).mean().sqrt()):.6f}, cuts {cuts}, partial "
+          f"plane in {partial} of {n} (entropy backend {backend_name()})")
+    return config, streams, launches
+
+
+def phase_rate(torch, et, dh, frames, card):
+    """Phase 8: rate mode (RESIDUAL_NONE, the config's default) on the 32
+    frames at base_cr 30 through ``roundtrip_frames_device``: every stream
+    within its budget, the decode again bit-equal, the first 4 frames
+    byte-identical one at a time, K1 and K2 launched, and a small input
+    encoded on the CPU makes the card's cut and flags.  K1 must equal the
+    truncation of its float variant (rate mode takes K1).  Under STORE a
+    base_cr 30 budget holds at most one plane, so 8 frames at base_cr 4
+    drive the cut search deeper."""
+    from ebcc_tpu_torch.core import stream
+    from ebcc_tpu_torch.ops import bitplane
+    u = scaled_input(torch, frames, (4, 1, 736, 1440))
+    if not torch.equal(dh.dwt2d_quantize(u, 5), bitplane.quantize_floor(
+            dh.dwt2d_transform(u, 5))):
+        raise AssertionError("K1 differs from the truncation of its float "
+                             "variant")
+    print("rate mode: K1 at 5 levels equals trunc(dwt2d_transform) bit for "
+          "bit at (4, 1, 736, 1440)")
+    n = frames.shape[0]
+    x = torch.from_numpy(frames).reshape(n, 1, H, W).cuda()
+    config, streams, launches = rate_roundtrip(torch, et, dh, x, 30, card)
+    print(f"launches on the rate path: {launches}")
+    missing = [k for k in ("dwt2d_quantize", "idwt2d_dequant")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the rate path: "
+                             f"{missing}")
+    if et.encode_frames_device(x[:4], config, max_batch=1) != streams[:4]:
+        raise AssertionError("rate streams depend on the batch partitioning")
+    rate_roundtrip(torch, et, dh, x[:8], 4, card)
+
+    small = frames[:1, :128, :256].copy()
+    cfg_s = et.CodecConfig(dims=small.shape, base_cr=8, zstd_level=3)
+    heads = [stream.split_frame_stream(et.encode(small, cfg_s, device=d))[0]
+             for d in ("cpu", "cuda")]
+    got = [(hd.flags, hd.base_cut, hd.base_top, hd.base_comp_size)
+           for hd in heads]
+    print(f"rate small input (base_cr 8): CPU (flags, cut, top, bytes) "
+          f"{got[0]}, card {got[1]}")
+    if got[0][:3] != got[1][:3]:
+        raise AssertionError("CPU and card rate encodes pick other cuts")
+    return launches
+
+
+def subpixel_shift(a, s):
+    """``a`` moved by ``s`` samples along its rows' axis, linearly between
+    neighbours, wrapping."""
+    i = int(np.floor(s))
+    f = np.float32(s - i)
+    return (1 - f) * np.roll(a, i, axis=1) + f * np.roll(a, i + 1, axis=1)
+
+
+def drifting_chunks(frames, n_chunks, t):
+    """(n_chunks, t, H, W): chunk c is frame c advected 0.7 samples per step
+    plus a drift of 0.12 per step."""
+    return np.stack([[subpixel_shift(frames[c], 0.7 * k) + 0.12 * k
+                      for k in range(t)] for c in range(n_chunks)]).astype(
+        np.float32)
+
+
+def phase_temporal(torch, et, dh, frames, card):
+    """Phase 9: temporal mode, 4 chunks of 8 drifting frames at MAX_ERROR
+    0.5 through ``roundtrip_frames_device`` (sub-batches of 2 chunks):
+    every frame within 0.5, the first sub-batch's decode equal bit for bit
+    to the reconstruction its encoder carried, a chunk alone byte-identical
+    to the same chunk in the batch, ``decode(..., device="cuda")`` agrees;
+    K1, its float variant and K2 launched."""
+    import dataclasses
+    from ebcc_tpu_torch.core import kernels, stream
+    n_chunks, t = 4, 8
+    x = torch.from_numpy(drifting_chunks(frames, n_chunks, t)).cuda()
+    config = et.CodecConfig(
+        dims=(n_chunks * t, H, W), residual_mode=et.RESIDUAL_MAX_ERROR,
+        error=0.5, temporal=True, chunk_dims=(t, H, W), zstd_level=3)
+    opts = et.EncodeOptions()
+    torch.cuda.synchronize()
+    dh.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams, dec = et.roundtrip_frames_device(x, config, opts, max_batch=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dh.launch_counts()
+    if not (dec.shape == x.shape and bool(torch.isfinite(dec).all())):
+        raise AssertionError("temporal roundtrip: bad decoded batch")
+    per_frame = (x - dec).abs().amax(dim=(2, 3))
+    if not bool((per_frame <= config.error).all()):
+        raise AssertionError(f"temporal frames over the bound: {per_frame}")
+    carry = kernels.encode_batch_temporal(
+        x[:2], config.error, opts.base_quantile_target,
+        return_carry=True)["_carry"]
+    if not torch.equal(carry, dec[:2]):
+        raise AssertionError("temporal decode differs from the encoder's "
+                             "carried reconstruction")
+    if et.encode_frames_device(x[1:2], config, opts) != streams[1:2]:
+        raise AssertionError("a temporal chunk alone differs from the same "
+                             "chunk in the batch")
+    if not np.array_equal(et.decode(streams[0], device="cuda"),
+                          dec[0].cpu().numpy()):
+        raise AssertionError("temporal decode() differs from "
+                             "decode_frames_device")
+    intra = et.encode_frames_device(
+        x, dataclasses.replace(config, temporal=False), opts, max_batch=2)
+    skipped = 0
+    for s in streams:
+        records, _ = stream.split_temporal_section(
+            s, stream.split_frame_stream(s)[0])
+        skipped += sum(r.comp_size == 0 for r in records)
+    print(f"temporal MAX_ERROR 0.5 on {card}: {n_chunks} chunks x {t} "
+          f"frames {H}x{W}, roundtrip {wall:.4f} s (first call at this "
+          f"shape), largest frame error {float(per_frame.max()):.6f}, "
+          f"stream bytes {sum(len(s) for s in streams)} against "
+          f"{sum(len(s) for s in intra)} intra, {skipped} of "
+          f"{n_chunks * (t - 1)} delta frames skipped (entropy backend "
+          f"{backend_name()}); decode equals the carry bit for bit")
+    print(f"launches on the temporal path: {launches}")
+    missing = [k for k in ("dwt2d_quantize", "dwt2d_transform",
+                           "idwt2d_dequant") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the temporal path: "
+                             f"{missing}")
+    return launches
+
+
+def phase_lossless(torch, et, dh, frames, card):
+    """Phase 10: lossless mode on 8 frames (2 chunks of 4) with NaN, +-Inf
+    and -0.0 planted, from a tensor on the card through
+    ``encode_frames_device`` and ``decode_frames_device``: bit-exact, and
+    no kernel launched (host-only work)."""
+    data = frames[:8].reshape(2, 4, H, W).copy()
+    data[0, 0, 10, 20] = np.nan
+    data[0, 3, H - 21, W - 40] = np.nan
+    data[1, 1, 50, 90] = np.inf
+    data[1, 2, 5, 7] = -np.inf
+    data[1, 3, H // 2, W // 2] = -0.0
+    x = torch.from_numpy(data).cuda()
+    config = et.CodecConfig(dims=(8, H, W), residual_mode=et.RESIDUAL_LOSSLESS,
+                            chunk_dims=(4, H, W), zstd_level=3)
+    torch.cuda.synchronize()
+    dh.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams = et.encode_frames_device(x, config)
+    dec = et.decode_frames_device(streams)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dh.launch_counts()
+    if dec.device.type != "cuda":
+        raise AssertionError("lossless decode left the card")
+    if not torch.equal(dec.view(torch.int32), x.view(torch.int32)):
+        raise AssertionError("lossless roundtrip is not bit-exact")
+    if any(launches.values()):
+        raise AssertionError(f"lossless launched kernels: {launches}")
+    cr = x.numel() * 4 / sum(len(s) for s in streams)
+    print(f"lossless on {card}: host-only work (no kernel), 8 frames as 2 "
+          f"chunks of 4 with NaN/+-Inf/-0.0, encode+decode {wall:.4f} s, "
+          f"bit-exact, CR {cr:.4f} (entropy backend {backend_name()}; under "
+          f"STORE this CR is not the codec's)")
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     import torch
@@ -771,6 +1000,15 @@ def main():
 
     # ---- phase 7: frames taller than the old column pass took ----
     phase_tall(torch, et, dh, tall, card)
+
+    # ---- phase 8: rate mode ----
+    phase_rate(torch, et, dh, frames, card)
+
+    # ---- phase 9: temporal mode ----
+    phase_temporal(torch, et, dh, frames, card)
+
+    # ---- phase 10: lossless mode ----
+    phase_lossless(torch, et, dh, frames, card)
 
     src = "ebcc_tpu_torch/csrc/dwt97.cu"
     kernels = []

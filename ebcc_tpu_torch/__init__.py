@@ -2,11 +2,13 @@
 compressor, for NVIDIA Hopper (H100).
 
 It sits beside ``ebcc_tpu`` (the JAX reference, which it never imports) and
-writes and reads the same ETPU streams.  This slice covers the MAX_ERROR
-intra encode and decode: the wavelet transforms run as hand-written CUDA
-kernels (``csrc/dwt97.cu``, built with ``nvcc`` at first use), the rest of
-the device work as PyTorch.  Entry points run on the CUDA card unless the
-caller passes ``device="cpu"``.
+writes and reads the same ETPU streams.  It covers every residual mode of
+the codec, encode and decode: rate mode (RESIDUAL_NONE, the default), the
+error-bounded modes (MAX_ERROR, RELATIVE_ERROR, POINTWISE_RELATIVE_ERROR,
+with ``allow_nan``, intra or ``temporal``) and lossless mode.  The wavelet
+transforms run as hand-written CUDA kernels (``csrc/dwt97.cu``, built with
+``nvcc`` at first use), the rest of the device work as PyTorch.  Entry
+points run on the CUDA card unless the caller passes ``device="cpu"``.
 
 Quick start::
 

@@ -1,11 +1,17 @@
 """Host orchestration and public entry points of the PyTorch port.
 
-Counterpart of ``ebcc_tpu/core/codec.py`` for the error-bounded intra
-path (MAX_ERROR, RELATIVE_ERROR, POINTWISE_RELATIVE_ERROR, each with
-``allow_nan``): ``encode``/``decode`` (host arrays in and out) and the
+Counterpart of ``ebcc_tpu/core/codec.py`` for every residual mode: rate
+mode (RESIDUAL_NONE, the config's default), the error-bounded modes
+(MAX_ERROR, RELATIVE_ERROR, POINTWISE_RELATIVE_ERROR, each with
+``allow_nan``, intra or ``temporal``) and the bit-exact lossless mode.
+Entry points: ``encode``/``decode`` (host arrays in and out) and the
 device-resident ``encode_frames_device``/``decode_frames_device``/
 ``roundtrip_frames_device`` (torch tensors out).  Streams are the ETPU
 format of ``docs/FORMAT.md``: the two packages read each other's streams.
+
+Lossless mode has no device work, as in the reference: its coder runs on
+the host (a tensor comes to the host once) and the device-resident
+decode uploads the decoded batch.
 
 Device rule: ``encode``, ``decode`` and ``decode_frames_device`` run on the
 CUDA card unless the caller passes ``device="cpu"``, and raise when asked
@@ -19,8 +25,9 @@ stream; Inf always raises.  Tensors are not masked (allow_nan is a
 host-input feature); the port refuses a non-finite tensor rather than ship
 a garbage stream.
 
-Modes and features the port does not cover yet raise ``NotImplementedError``
-naming the ROADMAP item that adds them.
+Features the port does not cover yet (ETPK containers, the CAB coder and
+native routing, the u16 upload, reference-format streams) raise
+``NotImplementedError`` naming the ROADMAP item that adds them.
 """
 
 from __future__ import annotations
@@ -77,22 +84,26 @@ def _max_safe_batch(chunk_numel: int) -> int:
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
-        f"{what} is not yet ported to ebcc_tpu_torch (ROADMAP Queue 1: "
-        f"{item})")
+        f"{what} is not yet ported to ebcc_tpu_torch (ROADMAP Queue 1 "
+        f"item {item})")
+
+
+def _temporal_active(config: CodecConfig, n_frames: int) -> bool:
+    """Temporal coding applies when asked for and the chunk has more than
+    one frame (reference codec.py:1328-1334); a one-frame chunk is coded
+    intra."""
+    return (config.temporal and n_frames > 1
+            and config.residual_mode != cfg.RESIDUAL_NONE)
 
 
 def _check_supported(config: CodecConfig, opts: EncodeOptions,
                      n_frames: int) -> int:
-    """Raise for what the port does not cover yet; returns the backend id."""
-    mode = config.residual_mode
-    if mode == cfg.RESIDUAL_NONE:
-        raise _not_ported("rate mode (RESIDUAL_NONE)", "rate mode")
-    if mode == cfg.RESIDUAL_LOSSLESS:
-        raise _not_ported("lossless mode", "lossless mode")
-    if config.temporal and n_frames > 1:
-        raise _not_ported("temporal mode", "temporal mode")
-    if opts.u16_upload:
-        raise _not_ported("the u16 upload", "link-saving exchange code")
+    """Raise for what the port does not cover yet; returns the backend id.
+    The u16 upload applies, as in the reference, to the intra
+    error-bounded encode only."""
+    if (opts.u16_upload and config.residual_mode != cfg.RESIDUAL_NONE
+            and not _temporal_active(config, n_frames)):
+        raise _not_ported("the u16 upload", "6, link-saving exchange code")
     return entropy.backend_id(config)
 
 
@@ -103,7 +114,7 @@ def _check_routing(kind: str):
     v = os.environ.get(f"EBCC_{kind.upper()}_BACKEND", "").lower()
     if v in ("native", "host"):
         raise _not_ported(f"native {kind} routing",
-                          "CAB coder and native packer/unpacker")
+                          "2, CAB coder and native packer/unpacker")
 
 
 def _check_frames_input(x):
@@ -262,8 +273,184 @@ def _finish_streams(streams: List[bytes], config: CodecConfig,
 
 
 # ---------------------------------------------------------------------------
+# Lossless mode (host coder, reference codec.py:1142-1272)
+# ---------------------------------------------------------------------------
+
+def _f32_to_ordered_u32(x: np.ndarray) -> np.ndarray:
+    """Order-preserving bijection float32 bits -> uint32 (negative floats
+    map below positives; every bit pattern, NaN and Inf included,
+    round-trips)."""
+    b = x.reshape(-1).view(np.uint32)
+    return np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
+
+
+def _ordered_u32_to_f32(u: np.ndarray) -> np.ndarray:
+    b = np.where(u & 0x80000000, u & 0x7FFFFFFF, ~u).astype(np.uint32)
+    return b.view(np.float32)
+
+
+def _lorenzo_fwd(u: np.ndarray) -> np.ndarray:
+    """Per-frame 2-D Lorenzo predictor residuals of (d0, h, w) uint32: a
+    wrapping difference along the rows, then along the columns."""
+    v = u.copy()
+    v[:, 1:] = u[:, 1:] - u[:, :-1]
+    d = v.copy()
+    d[:, :, 1:] = v[:, :, 1:] - v[:, :, :-1]
+    return d
+
+
+def _wrapping_cumsum(a: np.ndarray, axis: int) -> np.ndarray:
+    return (np.cumsum(a.astype(np.uint64), axis=axis)
+            & 0xFFFFFFFF).astype(np.uint32)
+
+
+def _lorenzo_inv(d: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`_lorenzo_fwd`: wrapping cumulative sums along the
+    columns, then the rows."""
+    return _wrapping_cumsum(_wrapping_cumsum(d, -1), -2)
+
+
+def _lossless_encode_frames(x_batch: np.ndarray,
+                            config: CodecConfig) -> List[bytes]:
+    """Bit-exact coder: per chunk, the float bits mapped to order-preserving
+    uint32, a per-frame 2-D Lorenzo prediction (predictor id 2) or, for
+    multi-frame chunks, a frame-axis wrapping difference first (id 3),
+    whichever compresses smaller; the id goes in the header's base_levels
+    field.  NaN and Inf pass through bit-exactly."""
+    x_batch = np.ascontiguousarray(x_batch, dtype=np.float32)
+    b, d0, h, w = x_batch.shape
+
+    def one(i):
+        u = _f32_to_ordered_u32(x_batch[i]).reshape(d0, h, w)
+        ent_id = entropy.default_backend()
+        cands = [(_lorenzo_fwd(u).tobytes(), 2)]
+        if d0 > 1:
+            w_ = u.copy()
+            w_[1:] = u[1:] - u[:-1]          # uint32 wraparound
+            cands.append((_lorenzo_fwd(w_).tobytes(), 3))
+        best = None
+        for raw, tdiff in cands:
+            payload, eid = entropy.compress(raw, ent_id,
+                                            config.zstd_level), ent_id
+            if len(payload) >= len(raw):
+                payload, eid = raw, entropy.BACKEND_STORE
+            if best is None or len(payload) < len(best[0]):
+                best = (payload, eid, tdiff)
+        payload, eid, tdiff = best
+        header = stream.FrameHeader(
+            flags=stream.FLAG_LOSSLESS, entropy=eid,
+            n_frames=d0, height=h, width=w,
+            minval=0.0, maxval=0.0, rmin=0.0, rmax=0.0,
+            base_levels=tdiff, res_levels=0, base_nplanes=0, base_cut=0,
+            base_top=0, res_nplanes=0, res_cut=0, res_top=0,
+            base_comp_size=len(payload), res_comp_size=0)
+        return stream.pack_frame_stream(header, payload, b"")
+
+    with stage("lossless encode (host)"):
+        if b <= 1:
+            return [one(i) for i in range(b)]
+        with ThreadPoolExecutor(max_workers=min(os.cpu_count() or 1,
+                                                b)) as pool:
+            return list(pool.map(one, range(b)))
+
+
+def _lossless_decode_streams(headers, streams: List[bytes]) -> np.ndarray:
+    """-> (N, d0, h, w) float32, bit-exact.  Predictor ids 0 and 1 (interim
+    coders of the reference) are refused."""
+    h0 = headers[0]
+    n = len(streams)
+    sz = h0.n_frames * h0.height * h0.width
+    for hd in headers:
+        if (hd.height > 4 * cfg.MAX_INTERNAL_IMAGE_DIM
+                or hd.width > 4 * cfg.MAX_INTERNAL_IMAGE_DIM
+                or hd.n_frames > 1 << 20):
+            raise stream.StreamError("implausible ETPU header dimensions")
+        if hd.base_levels not in (2, 3):
+            raise stream.StreamError(
+                "unsupported lossless predictor id (ids 0/1 were interim "
+                "pre-release coders; re-encode with a current build)")
+        if (hd.n_frames, hd.height, hd.width) != (h0.n_frames, h0.height,
+                                                  h0.width):
+            raise stream.StreamError("inconsistent chunk stream shapes")
+
+    def one(i):
+        hd = headers[i]
+        payload = streams[i][stream.FRAME_HEADER_SIZE:
+                             stream.FRAME_HEADER_SIZE + hd.base_comp_size]
+        raw = entropy.decompress(payload, hd.entropy, sz * 4)
+        if len(raw) != sz * 4:
+            raise stream.StreamError("lossless payload size mismatch")
+        d = np.frombuffer(raw, np.uint32).reshape(
+            hd.n_frames, hd.height, hd.width)
+        u = _lorenzo_inv(d)
+        if hd.base_levels == 3:              # frame-axis difference first
+            u = _wrapping_cumsum(u, 0)
+        return _ordered_u32_to_f32(u.reshape(-1)).reshape(
+            hd.n_frames, hd.height, hd.width)
+
+    with stage("lossless decode (host)"):
+        if n <= 1:
+            parts = [one(i) for i in range(n)]
+        else:
+            with ThreadPoolExecutor(max_workers=min(os.cpu_count() or 1,
+                                                    n)) as pool:
+                parts = list(pool.map(one, range(n)))
+    return np.stack(parts)
+
+
+def _maybe_lossless_batch(streams: List[bytes]):
+    """-> the decoded (N, d0, h, w) array when the batch is lossless
+    streams, else None (a peek at the first stream's flags byte; a mixed
+    batch raises)."""
+    if not streams or len(streams[0]) <= 5 or not (
+            streams[0][5] & stream.FLAG_LOSSLESS):
+        return None
+    headers = [stream.split_frame_stream(s)[0] for s in streams]
+    if not all(hd.lossless for hd in headers):
+        raise stream.StreamError("mixed lossless/lossy batch")
+    return _lossless_decode_streams(headers, streams)
+
+
+def _lossless_input(x, device) -> np.ndarray:
+    """The host array a lossless encode codes: a tensor comes to the host
+    once; a numpy batch stays (``device`` is still resolved, so a missing
+    card raises as on every entry point)."""
+    _check_frames_input(x)
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).cpu().numpy()
+    resolve_device(device)
+    return np.ascontiguousarray(x, dtype=np.float32)
+
+
+# ---------------------------------------------------------------------------
 # Host-side stream assembly
 # ---------------------------------------------------------------------------
+
+def build_partial_payload(v, stored_cut: int, cut: int, pb: int,
+                          num_planes: int):
+    """Rate-mode payload with a partial next-finer plane (reference
+    codec.py:543-568, ``stream.FLAG_BASE_PARTIAL``): the full planes of the
+    magnitudes at ``cut``, then the first ``pb`` bytes of the packed plane
+    at ``cut - 1`` (flat scan order), then the sign plane of the
+    coefficients significant in that truncated representation.  Returns
+    (payload_bytes, top); the header records ``base_cut = cut - 1``."""
+    assert cut > stored_cut and pb >= 0
+    mag = np.abs(v) >> (cut - stored_cut)
+    mx = int(mag.max()) if mag.size else 0
+    msb = mx.bit_length()
+    top = num_planes - cut - msb
+    parts = [
+        np.packbits(((mag >> s) & 1).astype(np.uint8), axis=-1).tobytes()
+        for s in range(msb - 1, -1, -1)
+    ]
+    pbit = ((np.abs(v) >> (cut - 1 - stored_cut)) & 1).astype(np.uint8)
+    flat = pbit.reshape(-1)
+    covered = np.zeros_like(flat)
+    covered[: pb * 8] = flat[: pb * 8]
+    partial = np.packbits(covered)[:pb].tobytes()
+    vis = (mag.astype(np.int64) << 1) | covered.reshape(mag.shape)
+    signs = np.packbits(((v < 0) & (vis > 0)).astype(np.uint8), axis=-1)
+    return b"".join(parts) + partial + signs.tobytes(), top
 
 def build_layer_payload_sparse(pos, vals, shape, stored_cut: int, cut: int,
                                num_planes: int):
@@ -323,6 +510,14 @@ class _SparseBatch:
         bounds = np.arange(2 * b + 1, dtype=np.int64) * self.sc
         self.splits = np.searchsorted(idx, bounds)
 
+    def dense(self, layer: int, i: int) -> np.ndarray:
+        """Dense (D0, Hp, Wp) int32 signed kept-values of one chunk/layer."""
+        j = layer * self.b + i
+        lo, hi = self.splits[j], self.splits[j + 1]
+        out = np.zeros(self.sc, np.int32)
+        out[self.idx[lo:hi] - j * self.sc] = self.vals[lo:hi]
+        return out.reshape(self.shape)
+
     def pair(self, layer: int, i: int):
         """(chunk-local int32 positions, signed values) of one chunk/layer."""
         j = layer * self.b + i
@@ -344,11 +539,36 @@ class _ChunkResult:
             else:
                 setattr(self, k, v[i])
 
+    def base_values(self):
+        return self.sparse.dense(0, self._i)
+
     def base_pair(self):
         return self.sparse.pair(0, self._i)
 
     def res_pair(self):
         return self.sparse.pair(1, self._i)
+
+
+def _const_stream(res: _ChunkResult, config: CodecConfig, n_frames, h,
+                  w) -> bytes:
+    """The stream of a constant chunk: a header and no payload."""
+    header = stream.FrameHeader(
+        flags=stream.FLAG_CONST, entropy=entropy.BACKEND_ZSTD,
+        n_frames=n_frames, height=h, width=w,
+        minval=float(res.minval), maxval=float(res.maxval),
+        rmin=0.0, rmax=0.0,
+        base_levels=config.base_levels, res_levels=config.residual_levels,
+        base_nplanes=cfg.BASE_NUM_PLANES, base_cut=0, base_top=0,
+        res_nplanes=cfg.RES_NUM_PLANES, res_cut=0, res_top=0,
+        base_comp_size=0, res_comp_size=0)
+    return stream.pack_frame_stream(header, b"", b"")
+
+
+def _check_overflow(res: _ChunkResult):
+    if bool(res.overflow):
+        raise RuntimeError(
+            "internal coefficient overflow: bitplane count too small for "
+            "this data (please report)")
 
 
 def _assemble_error_mode_stream(res: _ChunkResult, config: CodecConfig,
@@ -363,20 +583,8 @@ def _assemble_error_mode_stream(res: _ChunkResult, config: CodecConfig,
     maxval = float(res.maxval)
 
     if bool(res.const):
-        header = stream.FrameHeader(
-            flags=stream.FLAG_CONST, entropy=entropy.BACKEND_ZSTD,
-            n_frames=n_frames, height=h, width=w,
-            minval=minval, maxval=maxval, rmin=0.0, rmax=0.0,
-            base_levels=config.base_levels, res_levels=config.residual_levels,
-            base_nplanes=cfg.BASE_NUM_PLANES, base_cut=0, base_top=0,
-            res_nplanes=cfg.RES_NUM_PLANES, res_cut=0, res_top=0,
-            base_comp_size=0, res_comp_size=0)
-        return stream.pack_frame_stream(header, b"", b"")
-
-    if bool(res.overflow):
-        raise RuntimeError(
-            "internal coefficient overflow: bitplane count too small for "
-            "this data (please report)")
+        return _const_stream(res, config, n_frames, h, w)
+    _check_overflow(res)
 
     base_cut = int(res.base_cut)
     pure_cut = int(res.pure_cut)
@@ -491,12 +699,214 @@ def _assemble_error_mode_stream(res: _ChunkResult, config: CodecConfig,
     return stream.pack_frame_stream(header, base_comp, res_comp)
 
 
+def _assemble_temporal_stream(res: _ChunkResult, config: CodecConfig,
+                              n_frames, h, w, backend: int,
+                              parallel_deltas: bool = True) -> bytes:
+    """Serialization of a temporal chunk (reference codec.py:402-540).
+    Frame 0's candidate is the one the device picked and carried into the
+    prediction loop, so the host does not re-decide it on byte sizes: no
+    pure-vs-residual comparison, no drop rule, no mean adjustment."""
+    level = config.zstd_level
+    if bool(res.const):
+        return _const_stream(res, config, n_frames, h, w)
+    _check_overflow(res)
+
+    skip_residual = bool(res.skip_residual)
+    res_feasible = bool(res.res_feasible)
+    ship_pure = (not skip_residual) and (not res_feasible)
+    base_cut = int(res.pure_cut) if ship_pure else int(res.base_cut)
+    res_cut = int(res.res_cut)
+    store_cut = int(res.store_cut)
+    use_residual = (not skip_residual) and res_feasible
+    if ship_pure and not bool(res.pure_feasible):
+        logger.warning(
+            "Could not reach error target %g on the intra frame in any "
+            "configuration; shipping best effort (finest cut).",
+            float(res.target_abs))
+    t_feas = np.asarray(res.t_feasible)
+    if not t_feas.all():
+        logger.warning(
+            "Could not reach error target %g on %d delta frame(s); "
+            "shipping best effort (max shipped error %g).",
+            float(res.target_abs), int((~t_feas).sum()),
+            float(np.asarray(res.t_maxerr).max()))
+
+    # Per-frame slices of the chunk's sorted positions: layer entries are
+    # (T, Hp, Wp), frame 0's two layers in slot 0, each delta in its slot.
+    _, hpv, wpv = res.sparse.shape
+    fsz = hpv * wpv
+    fshape = (1, hpv, wpv)
+
+    def frame_pair(layer, t):
+        pos, vals = res.sparse.pair(layer, res._i)
+        lo, hi = np.searchsorted(pos, [t * fsz, (t + 1) * fsz])
+        return pos[lo:hi] - t * fsz, vals[lo:hi]
+
+    base_payload, base_top, _ = build_layer_payload_sparse(
+        *frame_pair(0, 0), fshape, store_cut, base_cut, cfg.BASE_NUM_PLANES)
+    base_comp, base_be = _entropy_encode(base_payload, backend, level)
+    res_comp = b""
+    res_top = 0
+    res_be = 0
+    if use_residual:
+        res_payload, res_top, _ = build_layer_payload_sparse(
+            *frame_pair(1, 0), fshape, res_cut, res_cut, cfg.RES_NUM_PLANES)
+        res_comp, res_be = _entropy_encode(res_payload, backend, level)
+
+    t_cut = np.asarray(res.t_cut)
+    t_rmin = np.asarray(res.t_rmin, np.float32)
+    t_rmax = np.asarray(res.t_rmax, np.float32)
+
+    def delta_one(t):
+        cut_t = int(t_cut[t - 1])
+        payload, top_t, _ = build_layer_payload_sparse(
+            *frame_pair(1, t), fshape, cut_t, cut_t, cfg.DELTA_NUM_PLANES)
+        comp_t, be_t = _entropy_encode(payload, backend, level)
+        return (stream.DeltaRecord(
+            rmin=float(t_rmin[t - 1]), rmax=float(t_rmax[t - 1]),
+            cut=cut_t, top=top_t, entropy=be_t, comp_size=len(comp_t)),
+            comp_t)
+
+    # The frames' payloads are coded in a pool when the chunk is alone in
+    # its batch (the batch-level pool has nothing to spread then).
+    if n_frames <= 2 or not parallel_deltas:
+        parts = [delta_one(t) for t in range(1, n_frames)]
+    else:
+        with ThreadPoolExecutor(max_workers=min(4, n_frames - 1)) as pool:
+            parts = list(pool.map(delta_one, range(1, n_frames)))
+    records = [p[0] for p in parts]
+    dpayloads = [p[1] for p in parts]
+
+    flags = stream.FLAG_TEMPORAL
+    if use_residual:
+        flags |= stream.FLAG_HAS_RESIDUAL
+    total = (stream.FRAME_HEADER_SIZE + len(base_comp) + len(res_comp)
+             + (n_frames - 1) * stream.DELTA_RECORD_SIZE
+             + sum(len(p) for p in dpayloads))
+    logger.info(
+        "chunk %d (temporal): base=%d res=%d deltas=%d skipped=%d "
+        "compression ratio: %.2f", res._i, len(base_comp), len(res_comp),
+        sum(len(p) for p in dpayloads), int(np.asarray(res.t_skip).sum()),
+        n_frames * h * w * 4 / total)
+
+    header = stream.FrameHeader(
+        flags=flags, entropy=base_be,
+        n_frames=n_frames, height=h, width=w,
+        minval=float(res.minval), maxval=float(res.maxval),
+        rmin=float(res.rmin) if use_residual else 0.0,
+        rmax=float(res.rmax) if use_residual else 0.0,
+        base_levels=config.base_levels, res_levels=config.residual_levels,
+        base_nplanes=cfg.BASE_NUM_PLANES, base_cut=base_cut,
+        base_top=base_top,
+        res_nplanes=cfg.RES_NUM_PLANES, res_cut=res_cut if use_residual else 0,
+        res_top=res_top,
+        base_comp_size=len(base_comp), res_comp_size=len(res_comp),
+        res_entropy=res_be if use_residual else 0)
+    return stream.pack_temporal_stream(header, base_comp, res_comp,
+                                       records, dpayloads)
+
+
+def _rate_budget(config: CodecConfig, n_frames: int, h: int, w: int) -> int:
+    """Payload bytes a rate-mode chunk may take: its raw bytes over
+    ``base_cr``, less the header (reference codec.py:598, :1380-1386)."""
+    return max(0, int(n_frames * h * w * 4 / config.base_cr)
+               - stream.FRAME_HEADER_SIZE)
+
+
+def _assemble_rate_mode_stream(res: _ChunkResult, config: CodecConfig,
+                               n_frames, h, w, backend: int) -> bytes:
+    """Rate mode (RESIDUAL_NONE, reference codec.py:571-670): the finest
+    cut whose real compressed size fits the ``base_cr`` byte budget, from
+    the device's estimate and one entropy call per step (size is monotone
+    in the cut), then the rest of the budget filled with a prefix of the
+    next-finer plane (``FLAG_BASE_PARTIAL``), its length bisected to the
+    byte."""
+    level = config.zstd_level
+    if bool(res.const):
+        return _const_stream(res, config, n_frames, h, w)
+
+    budget = _rate_budget(config, n_frames, h, w)
+    est = res.base_est_sizes  # (P+1,)
+    store_cut = int(res.store_cut)
+    cut = (int(np.argmax(est <= budget)) if (est <= budget).any()
+           else cfg.BASE_NUM_PLANES)
+    cut = max(cut, store_cut)
+
+    base_pos, base_vals = res.base_pair()
+    d0v, hpv, wpv = res.sparse.shape
+
+    def payload_at(c):
+        if c >= cfg.BASE_NUM_PLANES:
+            return b"", entropy.BACKEND_ZSTD, 0
+        pl, top, _ = build_layer_payload_sparse(
+            base_pos, base_vals, res.sparse.shape, store_cut, c,
+            cfg.BASE_NUM_PLANES)
+        comp, be = _entropy_encode(pl, backend, level)
+        return comp, be, top
+
+    comp, base_be, top = payload_at(cut)
+    while len(comp) > budget and cut < cfg.BASE_NUM_PLANES:
+        cut += 1
+        comp, base_be, top = payload_at(cut)
+    while cut > store_cut:
+        trial, trial_be, trial_top = payload_at(cut - 1)
+        if len(trial) > budget:
+            break
+        cut -= 1
+        comp, base_be, top = trial, trial_be, trial_top
+
+    # Byte-granular fill, kept only when it beats the full-plane payload.
+    flags = 0
+    if store_cut < cut <= cfg.BASE_NUM_PLANES and len(comp) < budget:
+        plane_bytes = d0v * hpv * wpv // 8
+        zbk = entropy.default_backend()
+        base_v = res.base_values()
+        lo, hi = 0, plane_bytes
+        best = None
+        for _ in range(8):
+            mid = (lo + hi + 1) // 2
+            pl, ptop = build_partial_payload(base_v, store_cut, cut, mid,
+                                             cfg.BASE_NUM_PLANES)
+            trial = entropy.compress(pl, zbk, level)
+            if len(trial) <= budget:
+                lo = mid
+                best = (trial, ptop)
+            else:
+                hi = mid - 1
+            if lo >= hi:
+                break
+        if best is not None and len(best[0]) > len(comp):
+            comp, top = best
+            base_be = zbk
+            cut -= 1
+            flags |= stream.FLAG_BASE_PARTIAL
+
+    header = stream.FrameHeader(
+        flags=flags, entropy=base_be,
+        n_frames=n_frames, height=h, width=w,
+        minval=float(res.minval), maxval=float(res.maxval),
+        rmin=0.0, rmax=0.0,
+        base_levels=config.base_levels, res_levels=config.residual_levels,
+        base_nplanes=cfg.BASE_NUM_PLANES, base_cut=cut, base_top=top,
+        res_nplanes=cfg.RES_NUM_PLANES, res_cut=0, res_top=0,
+        base_comp_size=len(comp), res_comp_size=0)
+    return stream.pack_frame_stream(header, comp, b"")
+
+
 def _assemble_batch(out_np, config, opts, n_frames, h, w, backend,
                     n_chunks: int) -> List[bytes]:
     """Host-side stream assembly for a fetched batch, with the entropy
     coding spread over a thread pool (zstandard releases the GIL)."""
-    fn = lambda i: _assemble_error_mode_stream(
-        _ChunkResult(out_np, i), config, opts, n_frames, h, w, backend)
+    if _temporal_active(config, n_frames):
+        fn = lambda i: _assemble_temporal_stream(
+            _ChunkResult(out_np, i), config, n_frames, h, w, backend,
+            parallel_deltas=n_chunks <= 1)
+    elif config.residual_mode == cfg.RESIDUAL_NONE:
+        fn = lambda i: _assemble_rate_mode_stream(
+            _ChunkResult(out_np, i), config, n_frames, h, w, backend)
+    else:
+        fn = lambda i: _assemble_error_mode_stream(
+            _ChunkResult(out_np, i), config, opts, n_frames, h, w, backend)
     with stage("assemble+zstd"):
         if n_chunks <= 1:
             return [fn(i) for i in range(n_chunks)]
@@ -561,12 +971,22 @@ def _encode_to_host(xb, config: CodecConfig, opts: EncodeOptions) -> dict:
         raise ValueError(
             f"batch of {b} chunks x {n_frames * hp * wp} coefficients "
             "exceeds the int32 sparse-index space; lower max_batch")
+    levels = dict(base_levels=config.base_levels,
+                  res_levels=config.residual_levels)
+    relative = config.residual_mode == cfg.RESIDUAL_RELATIVE_ERROR
     with stage("enc: device"):
-        out = kernels.encode_batch(
-            xb, config.error, opts.base_quantile_target,
-            base_levels=config.base_levels, res_levels=config.residual_levels,
-            relative_mode=config.residual_mode == cfg.RESIDUAL_RELATIVE_ERROR,
-            use_centered=not opts.disable_mean_adjustment)
+        if config.residual_mode == cfg.RESIDUAL_NONE:
+            out = kernels.encode_batch_rate_only(
+                xb, _rate_budget(config, n_frames, h, w), **levels)
+        elif _temporal_active(config, n_frames):
+            out = kernels.encode_batch_temporal(
+                xb, config.error, opts.base_quantile_target,
+                relative_mode=relative, **levels)
+        else:
+            out = kernels.encode_batch(
+                xb, config.error, opts.base_quantile_target,
+                relative_mode=relative,
+                use_centered=not opts.disable_mean_adjustment, **levels)
     return _fetch_encode_outputs(out, b, n_frames, hp, wp)
 
 
@@ -590,8 +1010,10 @@ def encode(data: np.ndarray, config: CodecConfig,
     data = np.asarray(data, dtype=np.float32).reshape(config.dims)
     n_frames, h, w = _layout(config.dims)
     logger.info("%s", config.describe())
-    x, internal, masks, backend = _prepare_input(
-        data.reshape(1, n_frames, h, w), config, opts, device)
+    data = data.reshape(1, n_frames, h, w)
+    if config.residual_mode == cfg.RESIDUAL_LOSSLESS:
+        return _lossless_encode_frames(data, config)[0]
+    x, internal, masks, backend = _prepare_input(data, config, opts, device)
     return _finish_streams(
         _encode_chunk_batch(x, internal, opts, backend), config, masks)[0]
 
@@ -601,11 +1023,13 @@ def encode(data: np.ndarray, config: CodecConfig,
 # ---------------------------------------------------------------------------
 
 def _parse_streams(streams):
-    """-> (headers, (base, res) payloads, mask bitmaps): each masked
-    stream's packed invalid bitmap, None for the others, or None for the
-    whole batch when no stream is masked."""
+    """-> (headers, (base, res) payloads, temporal sections, mask bitmaps):
+    each temporal stream's (delta records, delta payloads), ([], []) for
+    the others; each masked stream's packed invalid bitmap, None for the
+    others, or None for the whole batch when no stream is masked."""
     headers = []
     payloads = []
+    temporal_parts = []
     mask_payloads = []
     for s in streams:
         hd, basep, resp = stream.split_frame_stream(s)
@@ -618,14 +1042,14 @@ def _parse_streams(streams):
                 or hd.base_cut > hd.base_nplanes
                 or hd.res_cut > hd.res_nplanes):
             raise stream.StreamError("implausible ETPU header dimensions")
-        if hd.temporal:
-            raise _not_ported("decoding temporal streams", "temporal mode")
         if hd.lossless:
-            raise _not_ported("decoding lossless streams", "lossless mode")
-        if hd.flags & stream.FLAG_BASE_PARTIAL:
-            raise _not_ported("decoding rate-mode streams", "rate mode")
+            raise stream.StreamError("mixed lossless/lossy batch")
         headers.append(hd)
         payloads.append((basep, resp))
+        # A const stream can be temporal (a flat frame 0 in a live chunk):
+        # its deltas still apply.
+        temporal_parts.append(stream.split_temporal_section(s, hd)
+                              if hd.temporal else ([], []))
         if hd.masked:
             ent_id, mp = stream.split_mask_section(s, hd)
             if ent_id not in (entropy.BACKEND_STORE, entropy.BACKEND_ZSTD):
@@ -645,9 +1069,15 @@ def _parse_streams(streams):
              hd.base_nplanes, hd.res_nplanes)
         if k != key:
             raise stream.StreamError("inconsistent chunk stream shapes")
+    # Plain const streams decode either way; every other stream of a batch
+    # must agree on temporal against intra.
+    tflags = {hd.temporal for hd in headers
+              if hd.temporal or not hd.const_field}
+    if len(tflags) > 1:
+        raise stream.StreamError("inconsistent temporal flags across chunks")
     if all(m is None for m in mask_payloads):
         mask_payloads = None
-    return headers, payloads, mask_payloads
+    return headers, payloads, temporal_parts, mask_payloads
 
 
 def _decode_streams_device(streams: List[bytes], device):
@@ -657,44 +1087,72 @@ def _decode_streams_device(streams: List[bytes], device):
 
     The host entropy-decodes the payloads and extracts the sorted (index,
     signed kept-value) pairs; both go up in one copy each, and one scatter
-    plus the inverse transforms rebuild the batch on the device.
-    Log-domain chunks (pointwise-relative mode) get their ``exp`` as the
-    last arithmetic step, after both layers are summed, as the encoder
-    verified (reference ``_finish``, codec.py:1853-1865)."""
-    headers, payloads, nan_masks = _parse_streams(streams)
+    plus the inverse transforms rebuild the batch on the device.  Temporal
+    streams decode as one single-frame entry per frame (frame 0's two
+    layers, then one delta layer per later frame), which
+    :func:`kernels.temporal_accumulate` adds up in the order the encoder
+    verified.  Log-domain chunks (pointwise-relative mode) get their
+    ``exp`` as the last arithmetic step (reference ``_finish``,
+    codec.py:1853-1865).  A lossless batch is decoded on the host and
+    uploaded."""
+    lossless = _maybe_lossless_batch(streams)
+    if lossless is not None:
+        n = lossless.shape[0]
+        with stage("dec: upload lossless"):
+            out = torch.from_numpy(lossless).to(device)
+        return out, np.zeros(n, bool), np.zeros(n, np.float32), None
+    headers, payloads, temporal_parts, nan_masks = _parse_streams(streams)
     h0 = headers[0]
     n = len(headers)
     d0, h, w = h0.n_frames, h0.height, h0.width
     hp, wp = _padded_hw(h, w, max(h0.base_levels, h0.res_levels))
-    sc = d0 * hp * wp
-    if n > _max_safe_batch(sc):
+    temporal = any(hd.temporal for hd in headers)
+    t_frames = d0 if temporal else 1
+    ent_d0 = 1 if temporal else d0
+    ne = n * t_frames
+    sc = ent_d0 * hp * wp
+    if ne > _max_safe_batch(sc):
         raise stream.StreamError(
             "decode batch exceeds int32 sparse-index space; use a smaller "
             "max_batch")
 
-    minval = np.array([hd.minval for hd in headers], np.float32)
-    maxval = np.array([hd.maxval for hd in headers], np.float32)
-    rmin = np.array([hd.rmin if hd.has_residual else 0.0 for hd in headers],
-                    np.float32)
-    rmax = np.array([hd.rmax if hd.has_residual else 0.0 for hd in headers],
-                    np.float32)
-    base_cut = np.array([hd.base_cut for hd in headers], np.int32)
-    res_cut = np.array([hd.res_cut if hd.has_residual else 0
-                        for hd in headers], np.int32)
-    const_mask = np.array([hd.const_field for hd in headers], bool)
-    any_residual = any(hd.has_residual for hd in headers)
-    plane_bytes = d0 * hp * (wp // 8)
+    minval = np.zeros(ne, np.float32)
+    maxval = np.zeros(ne, np.float32)
+    rmin = np.zeros(ne, np.float32)
+    rmax = np.zeros(ne, np.float32)
+    base_cut = np.zeros(ne, np.int32)
+    res_cut = np.zeros(ne, np.int32)
+    const_mask = np.zeros(n, bool)
+    for i, hd in enumerate(headers):
+        j = i * t_frames
+        minval[j], maxval[j] = hd.minval, hd.maxval
+        # const + temporal: only frame 0 is flat (its entry decodes to
+        # minval); the whole-chunk fill is for plain const streams.
+        const_mask[i] = hd.const_field and not hd.temporal
+        base_cut[j] = hd.base_cut
+        if hd.has_residual:
+            rmin[j], rmax[j] = hd.rmin, hd.rmax
+            res_cut[j] = hd.res_cut
+        for t, rec in enumerate(temporal_parts[i][0], start=1):
+            if rec.cut > 32 or rec.top > 32:
+                raise stream.StreamError("implausible delta record geometry")
+            rmin[j + t], rmax[j + t] = rec.rmin, rec.rmax
+            res_cut[j + t] = rec.cut
+    any_residual = temporal or any(hd.has_residual for hd in headers)
+    plane_bytes = ent_d0 * hp * (wp // 8)
     # Log-domain chunks store log values: the host const fill takes their
     # exp (reference codec.py:1682-1692).
     log_flags = np.array([hd.log_domain for hd in headers], bool)
-    const_val = minval.copy()
+    const_val = minval[::t_frames].copy()
     if log_flags.any():
         with np.errstate(over="ignore"):
             const_val = np.where(log_flags, np.exp(const_val),
                                  const_val).astype(np.float32)
 
     def _decompress_layer(hd, payload, which):
-        """One chunk layer -> (raw bytes, kept); (None, 0) when empty."""
+        """One chunk layer -> (raw bytes, kept, pb), pb the bytes of the
+        last plane row present (plane_bytes unless the layer is a
+        FLAG_BASE_PARTIAL prefix); (None, 0, 0) when empty."""
         if which == "base":
             num_planes, cut, top = hd.base_nplanes, hd.base_cut, hd.base_top
             backend = hd.entropy
@@ -703,50 +1161,85 @@ def _decode_streams_device(streams: List[bytes], device):
             backend = hd.res_entropy_effective
         kept = num_planes - cut - top
         if kept <= 0 or not payload:
-            return None, 0
+            return None, 0, 0
         max_size = (kept + 1) * plane_bytes
+        if which == "base" and hd.flags & stream.FLAG_BASE_PARTIAL:
+            if backend in (entropy.BACKEND_NATIVE_CAB,
+                           entropy.BACKEND_NATIVE_CAB2):
+                raise stream.StreamError(
+                    "partial-plane payloads require a zstd/store entropy "
+                    "layer")
+            raw = entropy.decompress(payload, backend, max_size)
+            pb = len(raw) - kept * plane_bytes
+            if not 0 <= pb <= plane_bytes:
+                raise stream.StreamError(
+                    f"partial payload size {len(raw)} outside "
+                    f"[{kept * plane_bytes}, {max_size}]")
+            return raw, kept, pb
+        return _decompress_full(payload, backend, kept, max_size)
+
+    def _decompress_full(payload, backend, kept, max_size):
         raw = entropy.decompress(payload, backend, max_size)
         if len(raw) != max_size:
             raise stream.StreamError(
                 f"decompressed payload size {len(raw)} != expected "
                 f"{max_size}")
-        return raw, kept
+        return raw, kept, plane_bytes
 
-    def _decompress_one(i):
+    def _decompress_delta(rec, payload):
+        # Delta geometry is measured against base_nplanes (the deeper plane
+        # budget of config.DELTA_NUM_PLANES).
+        kept = h0.base_nplanes - rec.cut - rec.top
+        if kept <= 0 or not payload:
+            return None, 0, 0
+        return _decompress_full(payload, rec.entropy, kept,
+                                (kept + 1) * plane_bytes)
+
+    def _decompress_one(j):
+        i, t = divmod(j, t_frames)
         hd = headers[i]
-        if hd.const_field:
-            return (None, 0), (None, 0)
+        if hd.const_field and not hd.temporal:
+            return (None, 0, 0), (None, 0, 0)
+        if t > 0:
+            records, dpayloads = temporal_parts[i]
+            return (None, 0, 0), _decompress_delta(records[t - 1],
+                                                   dpayloads[t - 1])
         basep, resp = payloads[i]
         base = _decompress_layer(hd, basep, "base")
         res = (_decompress_layer(hd, resp, "res") if hd.has_residual
-               else (None, 0))
+               else (None, 0, 0))
         return base, res
 
     with stage("dec: entropy decode"):
-        if n <= 1:
-            raws = [_decompress_one(i) for i in range(n)]
+        if ne <= 1:
+            raws = [_decompress_one(j) for j in range(ne)]
         else:
-            with ThreadPoolExecutor(max_workers=min(4, n)) as pool:
-                raws = list(pool.map(_decompress_one, range(n)))
+            with ThreadPoolExecutor(max_workers=min(4, ne)) as pool:
+                raws = list(pool.map(_decompress_one, range(ne)))
 
     def _layer_values(which: int):
         """Planes -> signed kept-values of one layer across the batch:
-        bottom-aligned plane stack, one unpackbits + shift-accumulate per
-        plane row, one masked sign apply.  (n, sc) int32, or None."""
+        bottom-aligned plane stack (a partial last row zero-filled), one
+        unpackbits + shift-accumulate per plane row, one masked sign
+        apply.  (ne, sc) int32, or None."""
         kmax = max((r[which][1] for r in raws), default=0)
         if kmax == 0:
             return None
-        planes = np.zeros((n, kmax, plane_bytes), np.uint8)
-        signs = np.zeros((n, plane_bytes), np.uint8)
+        planes = np.zeros((ne, kmax, plane_bytes), np.uint8)
+        signs = np.zeros((ne, plane_bytes), np.uint8)
         for i, r in enumerate(raws):
-            raw, kept = r[which]
+            raw, kept, pb = r[which]
             if raw is None:
                 continue
             pl = np.frombuffer(raw, np.uint8)
-            planes[i, kmax - kept:] = pl[:kept * plane_bytes].reshape(
-                kept, plane_bytes)
-            signs[i] = pl[kept * plane_bytes:]
-        mag = np.zeros((n, plane_bytes * 8), np.int32)
+            off = kmax - kept
+            full = kept - 1
+            planes[i, off:off + full] = pl[:full * plane_bytes].reshape(
+                full, plane_bytes)
+            planes[i, off + full, :pb] = pl[full * plane_bytes:
+                                            full * plane_bytes + pb]
+            signs[i] = pl[full * plane_bytes + pb:]
+        mag = np.zeros((ne, plane_bytes * 8), np.int32)
         for k in range(kmax):
             mag = (mag << 1) | np.unpackbits(planes[:, k], axis=-1)
         sb = np.unpackbits(signs, axis=-1).astype(bool)
@@ -760,7 +1253,7 @@ def _decode_streams_device(streams: List[bytes], device):
                 continue
             flat = v.reshape(-1)
             pos = np.flatnonzero(flat)
-            parts_idx.append(pos.astype(np.int64) + layer * n * sc)
+            parts_idx.append(pos.astype(np.int64) + layer * ne * sc)
             parts_val.append(flat[pos])
         idx = (np.concatenate(parts_idx) if parts_idx
                else np.zeros(0, np.int64))
@@ -778,7 +1271,9 @@ def _decode_streams_device(streams: List[bytes], device):
             to_dev(minval), to_dev(maxval), to_dev(rmin), to_dev(rmax),
             base_levels=h0.base_levels, res_levels=h0.res_levels,
             out_hw=(h, w), has_residual=any_residual,
-            grid_shape=(n, d0, hp, wp))
+            grid_shape=(ne, ent_d0, hp, wp))
+        if temporal:
+            out = kernels.temporal_accumulate(out, t_frames)
         if log_flags.any():
             fl = to_dev(log_flags[:, None, None, None])
             out = torch.where(fl, torch.exp(out), out)
@@ -786,7 +1281,11 @@ def _decode_streams_device(streams: List[bytes], device):
 
 
 def _decode_streams(streams: List[bytes], device) -> np.ndarray:
-    """Host-resident decode: :func:`_decode_streams_device` + fetch."""
+    """Host-resident decode: :func:`_decode_streams_device` + fetch.  A
+    lossless batch is decoded on the host only."""
+    arr = _maybe_lossless_batch(streams)
+    if arr is not None:
+        return arr
     out, const_mask, const_val, nan_masks = _decode_streams_device(
         streams, device)
     out = out.cpu().numpy()
@@ -808,10 +1307,10 @@ def decode(buf: bytes, device="cuda") -> np.ndarray:
     _check_routing("decode")
     if buf[:4] == stream.MAGIC_CHUNKED:
         raise _not_ported("ETPK chunked containers",
-                          "ETPK containers and region decode")
+                          "1, ETPK containers and region decode")
     if buf[:4] in (b"EBCC", b"EBCK"):
         raise _not_ported("reference-format (EBCC/EBCK) streams",
-                          "surfaces")
+                          "5, surfaces")
     return _decode_streams([buf], dev)[0]
 
 
@@ -830,8 +1329,14 @@ def encode_frames_device(x, config: CodecConfig,
 
     ``max_batch`` splits the batch into sub-batches pipelined as in the
     reference: worker threads keep the device encode and fetch of later
-    sub-batches in flight while earlier ones are entropy-coded."""
+    sub-batches in flight while earlier ones are entropy-coded.  A
+    lossless encode runs on the host, ``max_batch`` chunks at a time."""
     opts = opts or EncodeOptions.from_env()
+    if config.residual_mode == cfg.RESIDUAL_LOSSLESS:
+        xb = _lossless_input(x, device)
+        step = max(1, max_batch or xb.shape[0])
+        return [s for i in range(0, xb.shape[0], step)
+                for s in _lossless_encode_frames(xb[i:i + step], config)]
     x, internal, masks, backend = _prepare_input(x, config, opts, device)
     b, n_frames, h, w = x.shape
     if max_batch is None or b <= max_batch:
@@ -891,6 +1396,14 @@ def roundtrip_frames_device(x, config: CodecConfig,
     device (on ``device`` for a numpy ``x``).  Returns ``(streams,
     decoded)``."""
     opts = opts or EncodeOptions.from_env()
+    if config.residual_mode == cfg.RESIDUAL_LOSSLESS:
+        dev = (x.device if isinstance(x, torch.Tensor)
+               else resolve_device(device))
+        streams = encode_frames_device(x, config, opts, max_batch, device)
+        step = max(1, max_batch or len(streams))
+        outs = [_decode_device_batch(streams[s:s + step], dev)
+                for s in range(0, len(streams), step)]
+        return streams, torch.cat(outs, dim=0)
     x, internal, masks, backend = _prepare_input(x, config, opts, device)
     b, n_frames, h, w = x.shape
     if max_batch is None or b <= max_batch:

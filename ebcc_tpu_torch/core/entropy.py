@@ -4,7 +4,7 @@ The PyTorch port's copy of ``ebcc_tpu/core/entropy.py``, restricted to the
 STORE and ZSTD backends.  The backend ids are part of the stream format and
 keep the JAX package's values.  The CAB coders (ids 2 and 4) are C++ under
 ``ebcc_tpu/native/``; the port has no copy of them yet, so selecting or
-decoding them raises ``NotImplementedError`` (ROADMAP Queue 1, CAB item).
+decoding them raises ``NotImplementedError`` (ROADMAP Queue 1 item 2).
 
 As in the reference: without ``zstandard`` the ZSTD backend stores the
 payload raw, and :func:`backend_id` then resolves to STORE so the stream
@@ -32,7 +32,7 @@ _CAB_IDS = (BACKEND_NATIVE_CAB, BACKEND_NATIVE_CAB2, BACKEND_AUTO)
 def _not_ported(backend: int):
     return NotImplementedError(
         f"entropy backend {backend} (CAB) is not yet ported to "
-        "ebcc_tpu_torch (ROADMAP Queue 1: CAB coder)")
+        "ebcc_tpu_torch (ROADMAP Queue 1 item 2: CAB coder)")
 
 
 def compress(data: bytes, backend: int = BACKEND_ZSTD,
@@ -77,5 +77,5 @@ def backend_id(config) -> int:
     if name in ("cab", "cab2", "auto"):
         raise NotImplementedError(
             f"entropy_backend={name!r} is not yet ported to ebcc_tpu_torch "
-            "(ROADMAP Queue 1: CAB coder)")
+            "(ROADMAP Queue 1 item 2: CAB coder)")
     return default_backend()

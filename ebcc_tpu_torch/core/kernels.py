@@ -1,9 +1,11 @@
-"""Batched device programs of the MAX_ERROR codec, in PyTorch.
+"""Batched device programs of the codec, in PyTorch.
 
 Counterpart of ``ebcc_tpu/core/kernels.py`` (``_coarse_fine_search``
 :63-131, ``encode_batch``/``_encode_core`` :139-158 and :195-845 in their
-batched formulation, with relative targets and the fused curve sweep,
-``decode_batch_sparse`` :1181-1214 and ``_decode_from_qflat``
+batched formulation, with relative targets, the fused curve sweep and
+``return_internal``, ``encode_batch_temporal`` :853-1121,
+``encode_batch_rate_only`` :1126-1173, ``decode_batch_sparse``
+:1181-1214, ``temporal_accumulate`` :1501-1520 and ``_decode_from_qflat``
 :1523-1544).  Every step keeps the reference's arithmetic and decisions;
 what changes is the idiom:
 
@@ -16,11 +18,12 @@ what changes is the idiom:
     is elementwise or a per-chunk max/min/count (exact) or a float64 mean,
     so a chunk's results do not depend on the batch it rides in: the port
     needs no counterpart of the reference's per-chunk ``lax.map`` under
-    ``det`` or of ``codec._pad_min_batch``.
+    ``det`` or of ``codec._pad_min_batch``.  The temporal encode is
+    likewise one batched formulation; its ``lax.scan`` over frames is a
+    Python loop carrying the reconstruction.
 
-Not ported here (see ROADMAP): rate mode, temporal mode and
-``return_internal``, the u16 upload and the link-saving exchange programs
-of ``core/transfer.py``.
+Not ported here (see ROADMAP): the u16 upload and the link-saving
+exchange programs of ``core/transfer.py``.
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ import os
 import numpy as np
 import torch
 
-from ..config import (BASE_NUM_PLANES, BASE_REFINE_ITERS, RES_NUM_PLANES,
-                      RES_REFINE_RATIOS, RES_SCALE_STEPS)
+from ..config import (BASE_NUM_PLANES, BASE_REFINE_ITERS, DELTA_NUM_PLANES,
+                      RES_NUM_PLANES, RES_REFINE_RATIOS, RES_SCALE_STEPS)
 from ..ops import bitplane, dwt, dwt_hopper, metrics
 
 BASE_SCALE = 65535.0
@@ -125,18 +128,29 @@ def encode_batch(x, error_target: float, base_quantile_target: float, *,
 
 
 def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
-                 base_levels, res_levels, relative_mode, use_centered):
+                 base_levels, res_levels, relative_mode, use_centered,
+                 return_internal: bool = False):
+    """``error_target``: a scalar, or a (B,) tensor of absolute per-chunk
+    targets (the temporal encode's frame 0).  ``return_internal`` (reference
+    :781-827) returns, in place of ``vals_comb``, the kept values ``_vb``
+    and ``_vr`` and ``_recon``, the reconstruction a decoder will make of
+    the candidate the device picks (skip-residual: base at base_cut;
+    residual feasible: base + residual; else pure base at pure_cut), with
+    the decoder's arithmetic."""
     b, d0, h, w = x.shape
     mult = 1 << max(base_levels, res_levels)
-    error_target = float(np.float32(error_target))
     bq_target = float(np.float32(base_quantile_target))
 
     # ---- per-chunk range & const detection ----
     const = minval == maxval
     rng = torch.where(const, 1.0, maxval - minval)
     # Absolute target per chunk (reference :206-208, REL->ABS).
-    target = ((maxval - minval) * error_target if relative_mode
-              else torch.full_like(minval, error_target))
+    if isinstance(error_target, torch.Tensor):
+        target = error_target
+    else:
+        error_target = float(np.float32(error_target))
+        target = ((maxval - minval) * error_target if relative_mode
+                  else torch.full_like(minval, error_target))
     # Feasibility is verified at target minus the decoder allowance, unless
     # that would eat more than half the target (reference :217-220).
     base_t = torch.clamp(target, min=0.0)
@@ -389,7 +403,7 @@ def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
     vr = torch.where(qres < 0, -(magr >> rc), magr >> rc)
     vr = torch.where(res_active, vr, 0)
 
-    return {
+    small = {
         "minval": minval, "maxval": maxval_ship, "const": const,
         "overflow": overflow,
         "target_abs": target,
@@ -409,7 +423,238 @@ def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
         "res_maxerr": res_maxerr_sel,
         "res_mean": res_mean_sel,
         "res_est_size": res_sizes,  # (B,) at the selected (scale, cut)
-        "vals_comb": torch.cat([vb.reshape(-1), vr.reshape(-1)]),
+    }
+    if not return_internal:
+        small["vals_comb"] = torch.cat([vb.reshape(-1), vr.reshape(-1)])
+        return small
+
+    # The shipped candidate as a decoder rebuilds it (_decode_from_qflat's
+    # layer arithmetic; K2 masks at the cut, so the integers before the
+    # shift to the kept values give the same spatial field).
+    cut_ship = torch.where((~skip_residual) & (~res_feasible), pure_cut,
+                           base_cut)
+    rng_ship = torch.where(const, 1.0, maxval_ship - minval)
+    spat_b = dwt_hopper.idwt2d_dequant(qbase_ship, cut_ship, base_levels)
+    recon_b = dwt.unpad(spat_b, orig_hw) * _b4(rng_ship / BASE_SCALE) + off
+    rrng_out = torch.where(rmax_out > rmin, rmax_out - rmin, 1.0)
+    spat_r = dwt_hopper.idwt2d_dequant(qres, res_cut, res_levels)
+    res_rec = (dwt.unpad(spat_r, orig_hw) * _b4(rrng_out / RES_SCALE)
+               + res_off)
+    small["_recon"] = recon_b + torch.where(res_active, res_rec, 0.0)
+    small["_vb"] = vb
+    small["_vr"] = vr
+    return small
+
+
+def encode_batch_rate_only(x, budget_bytes: int, *, base_levels: int = 5,
+                           res_levels: int = 3):
+    """Rate-targeted (RESIDUAL_NONE) encode of ``x`` (B, D0, H, W) float32
+    (reference ``encode_batch_rate_only``): no error scans.  The host picks
+    the cut from real compressed sizes, so the device makes the base
+    layer's size estimates and ships its kept values at ``store_cut`` =
+    the estimated cut minus 3, fine enough for the host's search and its
+    partial-plane fill.
+
+    The reference runs this transform in XLA and truncates it
+    (``quantize_floor(dwt2d(u))``); the port runs it through K1, whose
+    truncating store takes the float coefficients of the same kernel
+    without it (``dwt2d_transform``), so the integers are the same and the
+    float field is never written."""
+    b, d0, h, w = x.shape
+    mult = 1 << max(base_levels, res_levels)
+    minval, maxval = metrics.minmax(x)
+    const = minval == maxval
+    rng = torch.where(const, 1.0, maxval - minval)
+    u = (x - _b4(minval)) / _b4(rng) * BASE_SCALE
+    up, _ = dwt.pad_to_multiple(u, mult)
+    qbase = dwt_hopper.dwt2d_quantize(up.contiguous(), base_levels)
+    hp, wp = qbase.shape[-2], qbase.shape[-1]
+    sizes = bitplane.estimated_code_bytes(
+        qbase.reshape(b, d0 * hp, wp), BASE_NUM_PLANES)      # (P+1, B)
+    feasible = sizes <= float(np.float32(budget_bytes))
+    est_cut = torch.where(feasible.any(dim=0),
+                          feasible.to(torch.int32).argmax(dim=0),
+                          BASE_NUM_PLANES).to(torch.int32)
+    # 3-plane margin (reference :1156-1160): the estimate overshoots zstd's
+    # plane bytes by up to ~2 cuts, and the partial fill needs one more.
+    store_cut = torch.clamp(est_cut - 3, 0, BASE_NUM_PLANES - 1)
+    sc4 = _b4(store_cut)
+    mag = qbase.abs()
+    vals = torch.where(qbase < 0, -(mag >> sc4), mag >> sc4)
+    return {"minval": minval, "maxval": maxval, "const": const,
+            "store_cut": store_cut, "base_est_sizes": sizes,
+            "vals_comb": vals.reshape(-1)}
+
+
+def encode_batch_temporal(x, error_target: float,
+                          base_quantile_target: float, *,
+                          base_levels: int = 5, res_levels: int = 3,
+                          relative_mode: bool = False,
+                          return_carry: bool = False):
+    """Closed-loop temporal encode of ``x`` (B, T, H, W) float32, T >= 2
+    (reference ``encode_batch_temporal``): frame 0 is intra-coded by
+    :func:`_encode_core`; every later frame is coded as an error-bounded
+    delta against the previous frame's reconstruction, carried through a
+    loop over the frames.  Prediction uses what a decoder will rebuild, so
+    quantization error never accumulates and the bound holds on every
+    frame.  A frame already within the bound ships as a skip (rmin = rmax =
+    0, no payload).
+
+    Deltas take the residual layer's machinery: a min/max normalization
+    with an adaptive scale (``f_dyn``), the quantization-scale sweep over
+    ``RES_SCALE_STEPS`` with a coarse-to-fine cut search each (K2 on
+    ``DELTA_NUM_PLANES`` planes), the refinement over
+    ``RES_REFINE_RATIOS``, the uncentered criterion.  Returns the frame-0
+    outputs of :func:`_encode_core` with the whole chunk's ``const``,
+    ``overflow`` and ``target_abs``, ``vals_comb`` (both layers of shape
+    (B, T, Hp, Wp): frame 0's layers in slot 0, each delta in layer 1 at
+    its frame) and the (B, T-1) per-delta ``t_rmin``, ``t_rmax``,
+    ``t_cut``, ``t_skip``, ``t_feasible`` and ``t_maxerr``.
+    ``return_carry`` adds ``_carry``, the (B, T, H, W) reconstructions the
+    loop carried (for tests)."""
+    b, t, h, w = x.shape
+    mult = 1 << max(base_levels, res_levels)
+
+    # The target derives from the chunk-global range in relative mode,
+    # though frame 0's base layer is normalized by its own min/max.
+    gmin, gmax = metrics.minmax(x)
+    err = float(np.float32(error_target))
+    target = ((gmax - gmin) * err if relative_mode
+              else torch.full_like(gmin, err))
+    # The decoder accumulates every delta into the carried frame, so the
+    # inter-decoder allowance is budgeted 2 * T times (reference :895-903),
+    # never more than half the target.  float32 product as the reference's.
+    eps_scale = float(np.float32(2 * t) * np.float32(DECODER_EPS_REL))
+    eps_t = eps_scale * (gmax - gmin)
+    target = torch.where(target - eps_t >= 0.5 * target, target - eps_t,
+                         target)
+
+    x0 = x[:, :1]
+    min0, max0 = metrics.minmax(x0)
+    out0 = _encode_core(
+        x0, min0, max0, target, base_quantile_target,
+        base_levels=base_levels, res_levels=res_levels, relative_mode=False,
+        use_centered=False, return_internal=True)
+    recon = out0.pop("_recon")
+    carry = [recon]
+    steps = []
+    for k in range(1, t):
+        recon, st = _temporal_step(x[:, k:k + 1], recon, target, mult,
+                                   res_levels)
+        steps.append(st)
+        if return_carry:
+            carry.append(recon)
+
+    vb0 = out0.pop("_vb")                      # (B, 1, Hp, Wp)
+    vr0 = out0.pop("_vr")
+    hp, wp = vb0.shape[-2:]
+    layer0 = torch.cat([vb0, vb0.new_zeros((b, t - 1, hp, wp))], dim=1)
+    layer1 = torch.cat([vr0] + [st["vr"] for st in steps], dim=1)
+    out = dict(out0)
+    out["const"] = gmin == gmax
+    out["overflow"] = out0["overflow"] | torch.stack(
+        [st["overflow"] for st in steps]).any(dim=0)
+    out["target_abs"] = target
+    out["vals_comb"] = torch.cat([layer0.reshape(-1), layer1.reshape(-1)])
+    for key in ("rmin", "rmax", "cut", "skip", "feasible", "maxerr"):
+        out["t_" + key] = torch.stack([st[key] for st in steps], dim=1)
+    if return_carry:
+        out["_carry"] = torch.cat(carry, dim=1)
+    return out
+
+
+def _temporal_step(x_t, recon, target, mult: int, res_levels: int):
+    """One frame of the temporal loop (the reference's scan body,
+    :916-1089): -> (the next carried reconstruction, this frame's
+    outputs)."""
+    b = x_t.shape[0]
+    r = x_t - recon
+    skip = metrics.max_abs_error(x_t, recon) <= target
+    rmin = r.amin(dim=(1, 2, 3))
+    rmax = r.amax(dim=(1, 2, 3))
+    rrng = torch.where(rmax > rmin, rmax - rmin, 1.0)
+    rn = (r - _b4(rmin)) / _b4(rrng) * RES_SCALE
+    rnp_, orig_hw = dwt.pad_to_multiple(rn, mult)
+    yd = dwt_hopper.dwt2d_transform(rnp_.contiguous(), res_levels)
+    hp_, wp_ = yd.shape[-2:]
+
+    # Adaptive quantization scale: the finest step resolves the target
+    # with ~4x margin; the 800 cap keeps |coeff| inside DELTA_NUM_PLANES.
+    f_dyn = torch.clamp(
+        4.0 * rrng / (RES_SCALE * torch.clamp(target, min=1e-30)),
+        min=1.0, max=800.0)
+
+    cut_l, feas_l, est_l, rmax_l, q_l = [], [], [], [], []
+    for f in RES_SCALE_STEPS:
+        fv = f_dyn * float(np.float32(f))
+        q_f = bitplane.quantize_floor(yd * _b4(fv))
+        rmax_adj = rmin + rrng / fv
+        sb = torch.where(rmax_adj > rmin, rmax_adj - rmin, 1.0) / RES_SCALE
+
+        def dmetrics(rec_spatial, cut, sb=sb):
+            rec = dwt.unpad(rec_spatial, orig_hw) * _b4(sb) + _b4(rmin)
+            return (metrics.max_abs_error(x_t, recon + rec),)
+
+        [(cut_f, feas_f, _m)], _, _ = _coarse_fine_search(
+            q_f, DELTA_NUM_PLANES, res_levels, dmetrics,
+            [lambda m: m[0] <= target])
+        est_f = bitplane.estimated_code_bytes(
+            q_f.reshape(b, hp_, wp_), DELTA_NUM_PLANES)
+        cut_l.append(cut_f)
+        feas_l.append(feas_f)
+        est_l.append(_take(est_f, cut_f))
+        rmax_l.append(rmax_adj)
+        q_l.append(q_f)
+
+    feas_s = torch.stack(feas_l)
+    f_idx = torch.where(feas_s, torch.stack(est_l), 3.4e38).argmin(dim=0)
+    sel = lambda arr: _take(torch.stack(arr), f_idx)
+    cut = sel(cut_l).to(torch.int32)
+    rmax_out = sel(rmax_l)
+    qsel = torch.stack(q_l)[f_idx, torch.arange(b, device=x_t.device)]
+    del q_l
+
+    # Post-selection refinement at the chosen cut (reference :983-1048):
+    # adopt the coarsest sub-grid scale still feasible.
+    f_grid = torch.tensor(RES_SCALE_STEPS, dtype=torch.float32,
+                          device=x_t.device)
+    fv_sel = f_dyn * f_grid[f_idx]
+    any_feas = feas_s.any(dim=0)
+    adopted = torch.zeros((b,), dtype=torch.bool, device=x_t.device)
+    for rr in RES_REFINE_RATIOS:                     # coarsest first
+        fv_r = fv_sel / float(np.float32(rr))
+        q_r = bitplane.quantize_floor(yd * _b4(fv_r))
+        rmax_r = rmin + rrng / fv_r
+        sb_r = torch.where(rmax_r > rmin, rmax_r - rmin, 1.0) / RES_SCALE
+        rec_r = (dwt.unpad(dwt_hopper.idwt2d_dequant(q_r, cut, res_levels),
+                           orig_hw) * _b4(sb_r) + _b4(rmin))
+        feas_r = (metrics.max_abs_error(x_t, recon + rec_r) <= target)
+        feas_r = feas_r & any_feas & ~adopted
+        qsel = torch.where(_b4(feas_r), q_r, qsel)
+        rmax_out = torch.where(feas_r, rmax_r, rmax_out)
+        adopted |= feas_r
+
+    cut4 = _b4(cut)
+    mag = qsel.abs()
+    overflow = mag.amax(dim=(1, 2, 3)) >= (1 << DELTA_NUM_PLANES)
+    vr = torch.where(qsel < 0, -(mag >> cut4), mag >> cut4)
+    vr = torch.where(_b4(skip), 0, vr)
+    rmin_s = torch.where(skip, 0.0, rmin)
+    rmax_f = torch.where(skip, 0.0, rmax_out)
+
+    # The shipped delta as a decoder rebuilds it: kept values expanded by
+    # the cut, dequantized there, scaled by the stored rmin/rmax; a skip's
+    # zero values and rmin = rmax = 0 give an exact zero.
+    q_ship = torch.where(vr < 0, -((-vr) << cut4), vr << cut4)
+    spat = dwt_hopper.idwt2d_dequant(q_ship, cut, res_levels)
+    rng_s = torch.where(rmax_f > rmin_s, rmax_f - rmin_s, 1.0)
+    delta = dwt.unpad(spat, orig_hw) * _b4(rng_s / RES_SCALE) + _b4(rmin_s)
+    recon_next = recon + delta
+    return recon_next, {
+        "vr": vr, "rmin": rmin_s, "rmax": rmax_f, "cut": cut, "skip": skip,
+        "feasible": skip | any_feas,
+        "maxerr": metrics.max_abs_error(x_t, recon_next),
+        "overflow": overflow & ~skip,
     }
 
 
@@ -428,6 +673,20 @@ def decode_batch_sparse(idx, vals, base_cut, res_cut, minval, maxval, rmin,
         qflat, base_cut, res_cut, minval, maxval, rmin, rmax,
         base_levels=base_levels, res_levels=res_levels, out_hw=out_hw,
         has_residual=has_residual, grid_shape=grid_shape)
+
+
+def temporal_accumulate(frames, t_frames: int):
+    """Per-frame temporal entries (n*T, 1, h, w) -> the chunks' frames
+    (n, T, h, w): frame t is frame t-1 plus entry t.  The adds run one
+    frame at a time, left to right, in float32: the arithmetic the
+    encoder's loop carried when it verified each frame's bound (a prefix
+    sum such as ``torch.cumsum`` may add in another order)."""
+    n = frames.shape[0] // t_frames
+    fr = frames[:, 0].reshape(n, t_frames, *frames.shape[2:])
+    out = [fr[:, 0]]
+    for k in range(1, t_frames):
+        out.append(out[-1] + fr[:, k])
+    return torch.stack(out, dim=1)
 
 
 def _decode_from_qflat(qflat, base_cut, res_cut, minval, maxval, rmin, rmax,

@@ -220,6 +220,20 @@ DELTA_RECORD_SIZE = struct.calcsize(_DELTA_FMT)
 assert DELTA_RECORD_SIZE == 16
 
 
+@dataclasses.dataclass
+class DeltaRecord:
+    rmin: float
+    rmax: float
+    cut: int
+    top: int
+    entropy: int
+    comp_size: int
+
+    def pack(self) -> bytes:
+        return struct.pack(_DELTA_FMT, self.rmin, self.rmax, self.cut,
+                           self.top, self.entropy, 0, self.comp_size)
+
+
 def _validate_temporal_section(buf: bytes, header: FrameHeader,
                                start: int) -> int:
     """-> section end offset (exclusive)."""
@@ -237,6 +251,33 @@ def _validate_temporal_section(buf: bytes, header: FrameHeader,
             f"temporal payload size mismatch: records say "
             f"{rec_end + total}, have {len(buf)}")
     return rec_end + total
+
+
+def split_temporal_section(buf: bytes, header: FrameHeader):
+    """-> ([DeltaRecord] * (n_frames-1), [payload bytes]); call after
+    :func:`split_frame_stream` validated the stream."""
+    start = (FRAME_HEADER_SIZE + header.base_comp_size
+             + header.res_comp_size)
+    nt = header.n_frames - 1
+    records = []
+    payloads = []
+    off = start + nt * DELTA_RECORD_SIZE
+    for t in range(nt):
+        (rmin, rmax, cut, top, ent, _res, csz) = struct.unpack_from(
+            _DELTA_FMT, buf, start + t * DELTA_RECORD_SIZE)
+        records.append(DeltaRecord(rmin, rmax, cut, top, ent, csz))
+        payloads.append(buf[off:off + csz])
+        off += csz
+    return records, payloads
+
+
+def pack_temporal_stream(header: FrameHeader, base_payload: bytes,
+                         res_payload: bytes, records, delta_payloads) -> bytes:
+    assert header.temporal and len(records) == header.n_frames - 1
+    parts = [pack_frame_stream(header, base_payload, res_payload)]
+    parts.extend(r.pack() for r in records)
+    parts.extend(delta_payloads)
+    return b"".join(parts)
 
 
 # Mask section (FLAG_MASKED), always the LAST section of a stream:

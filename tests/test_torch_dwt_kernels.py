@@ -370,3 +370,60 @@ def test_cuda_curve_stats_rows_independent_of_grid(shape):
         for k, cut in enumerate(cuts):
             one = th.curve_stats(*args, cut_grid=(cut,), **kw)
             torch.testing.assert_close(got[k], one[0], rtol=0, atol=0)
+
+
+def _delta_magnitude_input(b, shape_hw, seed):
+    """(b, 1, h, w) int32 at temporal-delta magnitudes: |q| spread over
+    every bit length up to DELTA_NUM_PLANES (22), both extremes present."""
+    rng = np.random.default_rng(seed)
+    h, w = shape_hw
+    mag = rng.integers(0, 1 << 22, size=(b, 1, h, w), dtype=np.int64)
+    mag >>= rng.integers(0, 22, size=mag.shape)
+    q = np.where(rng.random(mag.shape) < 0.5, -mag, mag).astype(np.int32)
+    q[0, 0, 0, 0] = (1 << 22) - 1
+    q[-1, 0, 1, 1] = -((1 << 22) - 1)
+    return q
+
+
+@pytest.mark.parametrize("levels", [3, 5])
+def test_dequant_plain_at_delta_magnitudes_matches_jax(levels):
+    """The temporal deltas' integers (|q| < 2^22) at every cut 0-22 (one
+    per chunk): the plain version against the JAX package's, to float
+    tolerance."""
+    q = _delta_magnitude_input(23, (64, 96), 7)
+    cut = np.arange(23, dtype=np.int32)
+    ref = np.asarray(jp.idwt2d_dequant(jnp.asarray(q), jnp.asarray(cut),
+                                       levels))
+    got = th.idwt2d_dequant(torch.from_numpy(q), torch.from_numpy(cut),
+                            levels).numpy()
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [3, 5])
+def test_cuda_dequant_at_delta_magnitudes(levels):
+    """K2 on the temporal deltas' integers (|q| < 2^22) at every cut 0-22
+    (one per chunk), bit-equal to its plain version on the card: the one
+    add of the per-cut constant stays exact there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels build with nvcc)")
+    dev = torch.device("cuda")
+    q = torch.from_numpy(_delta_magnitude_input(23, (96, 160), 8)).to(dev)
+    cut = torch.arange(23, dtype=torch.int32, device=dev)
+    torch.testing.assert_close(th.idwt2d_dequant(q, cut, levels),
+                               th.idwt2d_dequant_plain(q, cut, levels),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1, 128, 256)] + EDGE_SHAPES[:3])
+def test_cuda_quantize_is_truncated_transform(shape):
+    """Rate mode's route: K1's integers are the truncation of its float
+    variant's coefficients, bit for bit, at 5 and 3 levels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels build with nvcc)")
+    x = torch.from_numpy(np.random.default_rng(9).random(shape) * 65535.0)
+    x = x.to(torch.float32).cuda()
+    for levels in (3, 5):
+        want = torch.trunc(th.dwt2d_transform(x, levels)).to(torch.int32)
+        assert torch.equal(th.dwt2d_quantize(x, levels), want)
