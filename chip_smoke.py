@@ -20,7 +20,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    launches (a 5-level K2 call may launch at most 4, a 3-level one 3) and
    the device span of a call.  Then the same checks at the edge shapes
    (2, 1, 96, 160), (1, 2, 224, 416), (1, 1, 32, 64) (levels shrink to 1-2
-   samples) and (4, 1, 1824, 3616) (a 1801x3600 grid, padded; timed too).
+   samples), (4, 1, 1824, 3616) (a 1801x3600 grid, padded; timed too) and
+   (2, 1, 1024, 1024) (the compat tiles of phase 11; timed too).
 3. Main path: 32 frames of 721x1440 float32 on the card through
    ``roundtrip_frames_device`` at MAX_ERROR 0.5, base_cr 30, zstd level 3,
    sub-batches of 4; the bound is checked on the card, the streams decode
@@ -70,6 +71,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 10. Lossless mode: 8 frames (2 chunks of 4) with NaN, +-Inf and -0.0, a
     tensor on the card through ``encode_frames_device`` and
     ``decode_frames_device``: bit-exact, no kernel launched (host work).
+11. ETPK containers: (a) the 32 frames of phase 3 through
+    ``encode_chunked`` in one-frame chunks, ``max_batch=4``: every record
+    byte-identical to phase 3's stream, ``decode_chunked`` within 0.5, K1
+    and K2 launched, wall times beside ``encode_frames_device`` and the
+    host gather and scatter; (b) the 4 frames of phase 7 through
+    ``encode_chunked_compat`` in (1, 1024, 1024) tiles (32 chunks, 29.4%
+    edge padding): the full decode within 0.5, a region decode that
+    touches 8 chunks equal to the crop of the full decode bit for bit; (c)
+    ``compress_stream`` from an ``np.memmap`` of the 32 frames writes (a)'s
+    container byte for byte, ``append_chunked_file`` adds 8 frames, a
+    region across the append holds 0.5, ``repair_chunked_file`` removes
+    nothing; (d) phase 9's drifting frames as one (32, 721, 1440) array
+    through ``encode_chunked_compat`` with ``temporal=True``: 4 chunks of
+    8 frames, every record byte-identical to phase 9's stream, every frame
+    within 0.5.
 
 Phases 3, 5, 7, 8 and 9 print the total stream bytes or the budget use of
 their roundtrips, and phases 3, 8 and 9 the launches of each kernel in the
@@ -202,8 +218,10 @@ def ulp_gap(a, b):
 
 
 EDGE_SHAPES = ((2, 1, 96, 160), (1, 2, 224, 416), (1, 1, 32, 64),
-               (4, 1, 1824, 3616))
+               (4, 1, 1824, 3616), (2, 1, 1024, 1024))
 TALL_H, TALL_W = 1801, 3600     # a 0.1-degree grid, padded to 1824 x 3616
+COMPAT_TILE = 1024              # compat tiles of phase 11b: 2 x 4 per frame
+COMPAT_REGION = ((0, 4), (200, 550), (900, 1300))   # 8 of its 32 chunks
 
 
 def scaled_input(torch, frames, shape):
@@ -587,7 +605,7 @@ def phase_main_path(torch, et, dh, frames, card):
           f"{len(s_gpu)} B, byte-identical={s_cpu == s_gpu}")
     if rel > 0.01:
         raise AssertionError("CPU and card stream sizes differ by > 1%")
-    return launches, wall, cr
+    return launches, wall, cr, streams
 
 
 def phase_relative(torch, et, dh, frames, card):
@@ -905,7 +923,7 @@ def phase_temporal(torch, et, dh, frames, card):
     if missing:
         raise AssertionError(f"kernels not launched on the temporal path: "
                              f"{missing}")
-    return launches
+    return x.cpu().numpy(), streams
 
 
 def phase_lossless(torch, et, dh, frames, card):
@@ -941,6 +959,196 @@ def phase_lossless(torch, et, dh, frames, card):
           f"chunks of 4 with NaN/+-Inf/-0.0, encode+decode {wall:.4f} s, "
           f"bit-exact, CR {cr:.4f} (entropy backend {backend_name()}; under "
           f"STORE this CR is not the codec's)")
+
+
+def timed(fn, *args, **kw):
+    """-> (fn's result, wall seconds)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, time.perf_counter() - t0
+
+
+def era5_config(et, n):
+    return et.CodecConfig(
+        dims=(n, H, W), base_cr=30, residual_mode=et.RESIDUAL_MAX_ERROR,
+        error=0.5, chunk_dims=(1, H, W), zstd_level=3)
+
+
+def phase_container_era5(et, dh, frames, main_streams, card):
+    """Phase 11a: the 32 frames as an ETPK container of one-frame chunks,
+    ``max_batch=4``: every record byte-identical to phase 3's stream of the
+    same frame, the decode within 0.5; wall times beside
+    ``encode_frames_device`` on the same frames, and the host gather and
+    scatter."""
+    from ebcc_tpu_torch.core import codec, stream
+    n = frames.shape[0]
+    config = era5_config(et, n)
+    opts = et.EncodeOptions()
+    _, t_frames = timed(et.encode_frames_device, frames.reshape(n, 1, H, W),
+                        config, opts, max_batch=4)
+    dh.reset_launch_counts()
+    blob, t_enc = timed(et.encode_chunked, frames, config, opts, max_batch=4)
+    enc_launches = dh.launch_counts()
+    if stream.iter_chunked(blob)[1] != main_streams:
+        raise AssertionError("container records differ from the streams of "
+                             "encode_frames_device")
+    dh.reset_launch_counts()
+    out, t_dec = timed(et.decode_chunked, blob, max_batch=4)
+    dec_launches = dh.launch_counts()
+    maxerr = float(np.abs(out - frames).max())
+    if out.shape != frames.shape or maxerr > config.error:
+        raise AssertionError(f"container decode: shape {out.shape}, max "
+                             f"error {maxerr}")
+    grid = (n, 1, 1)
+    chunks, t_gather = timed(codec._gather_chunks, frames, (1, H, W), grid)
+    _, t_scatter = timed(codec._scatter_chunks, chunks, frames.shape,
+                         (1, H, W), grid)
+    print(f"container (a) on {card}: {n} chunks of (1, {H}, {W}), "
+          f"{len(blob)} bytes, records byte-identical to "
+          f"encode_frames_device's; encode_chunked {t_enc:.4f} s against "
+          f"encode_frames_device {t_frames:.4f} s, gather {t_gather:.4f} s, "
+          f"decode_chunked {t_dec:.4f} s, scatter {t_scatter:.4f} s, max "
+          f"error {maxerr:.6f}")
+    print(f"launches on the container path: encode {enc_launches}, decode "
+          f"{dec_launches}")
+    for name, got in (("encode", enc_launches["dwt2d_quantize"]),
+                      ("decode", dec_launches["idwt2d_dequant"])):
+        if got == 0:
+            raise AssertionError(f"container {name} launched no kernel")
+    return blob
+
+
+def phase_container_compat(et, dh, tall, card):
+    """Phase 11b: 4 frames of the 0.1-degree grid through
+    ``encode_chunked_compat`` in (1, 1024, 1024) tiles: 32 chunks, edge
+    chunks padded; the full decode within 0.5; a region decode that
+    crosses the column boundary at 1024 reaches the device decode with 8
+    streams and equals the crop of the full decode bit for bit."""
+    from ebcc_tpu_torch.core import codec
+    dims = tall.shape
+    chunk_dims = (1, COMPAT_TILE, COMPAT_TILE)
+    config = et.CodecConfig(
+        dims=dims, base_cr=30, residual_mode=et.RESIDUAL_MAX_ERROR,
+        error=0.5, chunk_dims=chunk_dims, zstd_level=3)
+    region = COMPAT_REGION
+    want_full = int(np.prod(codec._chunk_grid(dims, chunk_dims)))
+    want_region = int(np.prod([-(-hi // c) - lo // c for (lo, hi), c
+                               in zip(region, chunk_dims)]))
+    blob, t_enc = timed(et.encode_chunked_compat, tall, config)
+    inner = codec._decode_streams_device
+    seen = []
+
+    def counting(streams, device):
+        seen.append(len(streams))
+        return inner(streams, device)
+
+    codec._decode_streams_device = counting
+    try:
+        dh.reset_launch_counts()
+        full, t_full = timed(et.decode_chunked, blob)
+        full_k2, full_streams = dh.launch_counts()["idwt2d_dequant"], sum(seen)
+        seen.clear()
+        dh.reset_launch_counts()
+        got, t_region = timed(et.decode_chunked_region, blob, region)
+        reg_k2, reg_streams = dh.launch_counts()["idwt2d_dequant"], sum(seen)
+    finally:
+        codec._decode_streams_device = inner
+    maxerr = float(np.abs(full - tall).max())
+    crop = full[tuple(slice(*r) for r in region)]
+    print(f"container (b) on {card}: {dims} in {chunk_dims} tiles, "
+          f"{len(blob)} bytes, encode_chunked_compat "
+          f"{t_enc:.4f} s; full decode {t_full:.4f} s ({full_streams} streams "
+          f"to the device decode, {full_k2} K2 launches), max error "
+          f"{maxerr:.6f}; region {region} {t_region:.4f} s ({reg_streams} "
+          f"streams, {reg_k2} K2 launches), equal to the crop: "
+          f"{np.array_equal(got, crop)}")
+    if maxerr > config.error:
+        raise AssertionError(f"compat container: max error {maxerr}")
+    if (full_streams, reg_streams) != (want_full, want_region):
+        raise AssertionError(f"streams decoded: full {full_streams}, region "
+                             f"{reg_streams} (want {want_full} and "
+                             f"{want_region})")
+    if not np.array_equal(got.view(np.int32), crop.view(np.int32)):
+        raise AssertionError("region decode differs from the crop of the "
+                             "full decode")
+    if reg_k2 == 0:
+        raise AssertionError("region decode launched no K2")
+
+
+def phase_container_stream(et, frames, blob, card):
+    """Phase 11c: ``compress_stream`` from an ``np.memmap`` of the 32 frames
+    writes phase 11a's container byte for byte; ``append_chunked_file``
+    adds 8 frames; a region across the append holds 0.5 against the
+    source; ``repair_chunked_file`` finds nothing to remove."""
+    import tempfile
+    from ebcc_tpu_torch import io as tio
+    n = frames.shape[0]
+    config = era5_config(et, n)
+    extra = (frames[:8] + 0.5).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "frames.npy")
+        mm = np.lib.format.open_memmap(src, mode="w+", dtype=np.float32,
+                                       shape=frames.shape)
+        mm[:] = frames
+        mm.flush()
+        del mm
+        path = os.path.join(tmp, "archive.etpk")
+        with open(path, "wb") as f:
+            written, t_stream = timed(
+                tio.compress_stream, np.load(src, mmap_mode="r"), config, f,
+                max_batch=4)
+        with open(path, "rb") as f:
+            if f.read() != blob:
+                raise AssertionError("compress_stream differs from "
+                                     "encode_chunked")
+        appended, t_append = timed(tio.append_chunked_file, path, extra,
+                                   config)
+        with open(path, "rb") as f:
+            grown = f.read()
+        region = ((n - 4, n + 4), (H // 7, H // 2), (W // 3, W * 5 // 8))
+        got, t_region = timed(et.decode_chunked_region, grown, region)
+        removed = tio.repair_chunked_file(path)
+    source = np.concatenate([frames, extra])[tuple(slice(*r)
+                                                   for r in region)]
+    maxerr = float(np.abs(got - source).max())
+    print(f"container (c) on {card}: compress_stream from a memmap "
+          f"{t_stream:.4f} s for {written} bytes "
+          f"({frames.size / t_stream:.1f} values/s), byte-identical to "
+          f"encode_chunked; append of 8 frames {t_append:.4f} s "
+          f"({appended} bytes); region {region} across the append "
+          f"{t_region:.4f} s, max error {maxerr:.6f}; repair removed "
+          f"{removed} bytes")
+    if maxerr > config.error or removed != 0:
+        raise AssertionError(f"streaming: max error {maxerr}, repair "
+                             f"removed {removed}")
+
+
+def phase_container_temporal(et, dh, drifting, temporal_streams, card):
+    """Phase 11d: phase 9's 4 x 8 drifting frames as (32, H, W) with
+    ``temporal=True`` through ``encode_chunked_compat``: 4 chunks of
+    (8, H, W) (the 8-frame lead), every record byte-identical to phase 9's
+    stream of the same chunk, every frame within 0.5."""
+    from ebcc_tpu_torch.core import stream
+    x = drifting.reshape(-1, H, W)
+    config = et.CodecConfig(
+        dims=x.shape, residual_mode=et.RESIDUAL_MAX_ERROR, error=0.5,
+        temporal=True, zstd_level=3)
+    dh.reset_launch_counts()
+    blob, t_enc = timed(et.encode_chunked_compat, x, config)
+    header, records = stream.iter_chunked(blob)
+    out, t_dec = timed(et.decode_chunked, blob)
+    launches = dh.launch_counts()
+    per_frame = np.abs(out - x).max(axis=(1, 2))
+    print(f"container (d) on {card}: temporal compat, chunk dims "
+          f"{header.chunk_dims}, {len(records)} records, encode "
+          f"{t_enc:.4f} s, decode {t_dec:.4f} s, largest frame error "
+          f"{float(per_frame.max()):.6f}, launches {launches}")
+    if header.chunk_dims != (8, H, W) or records != temporal_streams:
+        raise AssertionError("temporal compat records differ from phase 9's "
+                             "streams")
+    if not bool((per_frame <= config.error).all()):
+        raise AssertionError(f"temporal container over the bound: "
+                             f"{per_frame}")
 
 
 def main():
@@ -986,7 +1194,8 @@ def main():
     print(f"card: {card}")
 
     # ---- phase 3: main path ----
-    launches, wall, cr = phase_main_path(torch, et, dh, frames, card)
+    launches, wall, cr, main_streams = phase_main_path(torch, et, dh, frames,
+                                                      card)
 
     # ---- phase 4: K3 against its plain version ----
     rows.update(phase_curve(torch, dh, frames, tall))
@@ -1005,10 +1214,16 @@ def main():
     phase_rate(torch, et, dh, frames, card)
 
     # ---- phase 9: temporal mode ----
-    phase_temporal(torch, et, dh, frames, card)
+    drifting, temporal_streams = phase_temporal(torch, et, dh, frames, card)
 
     # ---- phase 10: lossless mode ----
     phase_lossless(torch, et, dh, frames, card)
+
+    # ---- phase 11: ETPK containers, region decode, streaming IO ----
+    blob = phase_container_era5(et, dh, frames, main_streams, card)
+    phase_container_compat(et, dh, tall, card)
+    phase_container_stream(et, frames, blob, card)
+    phase_container_temporal(et, dh, drifting, temporal_streams, card)
 
     src = "ebcc_tpu_torch/csrc/dwt97.cu"
     kernels = []

@@ -2,7 +2,8 @@
 compressor, for NVIDIA Hopper (H100).
 
 It sits beside ``ebcc_tpu`` (the JAX reference, which it never imports) and
-writes and reads the same ETPU streams.  It covers every residual mode of
+writes and reads the same ETPU streams and ETPK chunked containers (with
+region decode; streaming file IO in ``ebcc_tpu_torch.io``).  It covers every residual mode of
 the codec, encode and decode: rate mode (RESIDUAL_NONE, the default), the
 error-bounded modes (MAX_ERROR, RELATIVE_ERROR, POINTWISE_RELATIVE_ERROR,
 with ``allow_nan``, intra or ``temporal``) and lossless mode.  The wavelet
@@ -38,8 +39,12 @@ from .config import (  # noqa: F401
 from .convert import config_from_reference, options_from_reference  # noqa: F401
 from .core.codec import (  # noqa: F401
     decode,
+    decode_chunked,
+    decode_chunked_region,
     decode_frames_device,
     encode,
+    encode_chunked,
+    encode_chunked_compat,
     encode_frames_device,
     roundtrip_frames_device,
 )

@@ -4,10 +4,13 @@ Counterpart of ``ebcc_tpu/core/codec.py`` for every residual mode: rate
 mode (RESIDUAL_NONE, the config's default), the error-bounded modes
 (MAX_ERROR, RELATIVE_ERROR, POINTWISE_RELATIVE_ERROR, each with
 ``allow_nan``, intra or ``temporal``) and the bit-exact lossless mode.
-Entry points: ``encode``/``decode`` (host arrays in and out) and the
+Entry points: ``encode``/``decode`` (host arrays in and out), the
 device-resident ``encode_frames_device``/``decode_frames_device``/
-``roundtrip_frames_device`` (torch tensors out).  Streams are the ETPU
-format of ``docs/FORMAT.md``: the two packages read each other's streams.
+``roundtrip_frames_device`` (torch tensors out), and the ETPK container
+paths ``encode_chunked``/``encode_chunked_compat``/``decode_chunked``/
+``decode_chunked_region`` (host arrays; the chunk grid on the host, one
+device batch of chunks at a time).  Streams and containers are the ETPU and
+ETPK formats of ``docs/FORMAT.md``: the two packages read each other's.
 
 Lossless mode has no device work, as in the reference: its coder runs on
 the host (a tensor comes to the host once) and the device-resident
@@ -25,9 +28,9 @@ stream; Inf always raises.  Tensors are not masked (allow_nan is a
 host-input feature); the port refuses a non-finite tensor rather than ship
 a garbage stream.
 
-Features the port does not cover yet (ETPK containers, the CAB coder and
-native routing, the u16 upload, reference-format streams) raise
-``NotImplementedError`` naming the ROADMAP item that adds them.
+Features the port does not cover yet (the CAB coder and native routing,
+the u16 upload, reference-format streams) raise ``NotImplementedError``
+naming the ROADMAP item that adds them.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ from . import entropy, kernels, stream
 # Residual payloads at or below this many compressed bytes are dropped
 # (reference drop rule, ebcc_tpu/core/codec.py:43).
 RESIDUAL_DROP_BYTES = 16
+# Chunks per device batch of the container paths (reference codec.py:48).
+DEFAULT_MAX_BATCH = 32
 
 
 def _padded_hw(h: int, w: int, levels_max: int) -> Tuple[int, int]:
@@ -252,17 +257,25 @@ def _set_log_flags(streams: List[bytes], config: CodecConfig) -> List[bytes]:
 
 def _prepare_input(x, config: CodecConfig, opts: EncodeOptions, device):
     """Every encode entry point's gate: the modes the port covers, the
-    NaN/Inf gate and mask fill, the log transform, and the upload of a
-    numpy batch to ``device``.  -> (float32 tensor, internal config,
-    masks, backend id)."""
+    NaN/Inf gate and mask fill, and the log transform.  A numpy batch stays
+    on the host (:func:`_pipeline_encode_slices` uploads it one slice at a
+    time); a tensor is cast to float32 on its own device.  -> (float32
+    batch, internal config, masks, backend id, device)."""
     _check_frames_input(x)
     backend = _check_supported(config, opts, x.shape[1])
     x, masks = _mask_fill_check(x, config.allow_nan)
     x, internal = _log_transform_check(x, config)
     if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(
-            resolve_device(device))
-    return x.to(torch.float32), internal, masks, backend
+        return (np.ascontiguousarray(x, dtype=np.float32), internal, masks,
+                backend, resolve_device(device))
+    return x.to(torch.float32), internal, masks, backend, x.device
+
+
+def _on_device(xb, device):
+    """A numpy batch slice uploaded to ``device``; a tensor as it is."""
+    if isinstance(xb, np.ndarray):
+        return torch.from_numpy(xb).to(device)
+    return xb
 
 
 def _finish_streams(streams: List[bytes], config: CodecConfig,
@@ -990,13 +1003,36 @@ def _encode_to_host(xb, config: CodecConfig, opts: EncodeOptions) -> dict:
     return _fetch_encode_outputs(out, b, n_frames, hp, wp)
 
 
-def _encode_chunk_batch(x_batch, config: CodecConfig, opts: EncodeOptions,
-                        backend: int) -> List[bytes]:
-    """Encode a (B, n_frames, h, w) float32 tensor of equally-shaped chunks,
-    already through :func:`_prepare_input`, -> per-chunk stream bytes."""
-    b, n_frames, h, w = x_batch.shape
-    out_np = _encode_to_host(x_batch, config, opts)
-    return _assemble_batch(out_np, config, opts, n_frames, h, w, backend, b)
+def _pipeline_encode_slices(slices, config: CodecConfig, opts: EncodeOptions,
+                            n_frames, h, w, backend: int,
+                            device=None) -> List[bytes]:
+    """Encode a sequence of (B, n_frames, h, w) batch slices, pipelined as
+    in the reference (``_pipeline_encode_slices``, codec.py:1462-1495):
+    ``EBCC_PIPELINE_DEPTH`` fetch workers (6 by default) keep the device
+    encode and fetch of later slices in flight while 2 assembler workers
+    entropy-code the fetched ones.  A numpy slice is uploaded to ``device``
+    by its fetch worker, so only the slices in flight are on the device.
+    The streams do not depend on how the chunks are sliced."""
+    def run(sl):
+        return _encode_to_host(_on_device(sl, device), config, opts)
+
+    if len(slices) == 1:
+        return _assemble_batch(run(slices[0]), config, opts, n_frames, h, w,
+                               backend, slices[0].shape[0])
+    depth = min(int(os.environ.get("EBCC_PIPELINE_DEPTH", "6")),
+                len(slices) - 1)
+    with ThreadPoolExecutor(max_workers=depth) as fetcher, \
+            ThreadPoolExecutor(max_workers=2) as assembler:
+        futs = [fetcher.submit(run, s) for s in slices[:depth]]
+        asm = []
+        for i, sl in enumerate(slices):
+            out_np = futs[i].result()
+            if i + depth < len(slices):
+                futs.append(fetcher.submit(run, slices[i + depth]))
+            asm.append(assembler.submit(
+                _assemble_batch, out_np, config, opts, n_frames, h, w,
+                backend, sl.shape[0]))
+        return [s for f in asm for s in f.result()]
 
 
 def encode(data: np.ndarray, config: CodecConfig,
@@ -1013,9 +1049,11 @@ def encode(data: np.ndarray, config: CodecConfig,
     data = data.reshape(1, n_frames, h, w)
     if config.residual_mode == cfg.RESIDUAL_LOSSLESS:
         return _lossless_encode_frames(data, config)[0]
-    x, internal, masks, backend = _prepare_input(data, config, opts, device)
+    x, internal, masks, backend, dev = _prepare_input(data, config, opts,
+                                                      device)
     return _finish_streams(
-        _encode_chunk_batch(x, internal, opts, backend), config, masks)[0]
+        _pipeline_encode_slices([x], internal, opts, n_frames, h, w, backend,
+                                dev), config, masks)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -1286,8 +1324,12 @@ def _decode_streams(streams: List[bytes], device) -> np.ndarray:
     arr = _maybe_lossless_batch(streams)
     if arr is not None:
         return arr
-    out, const_mask, const_val, nan_masks = _decode_streams_device(
-        streams, device)
+    return _finish_host(*_decode_streams_device(streams, device))
+
+
+def _finish_host(out, const_mask, const_val, nan_masks) -> np.ndarray:
+    """Fetch a decoded batch and finish it on the host: constant chunks
+    filled, NaNs restored."""
     out = out.cpu().numpy()
     if const_mask.any():
         out[const_mask] = const_val[const_mask, None, None, None]
@@ -1302,12 +1344,12 @@ def _decode_device_batch(streams: List[bytes], device):
 
 def decode(buf: bytes, device="cuda") -> np.ndarray:
     """Decode one ETPU stream -> (n_frames, h, w) float32, on ``device``
-    (the CUDA card unless ``device="cpu"``)."""
+    (the CUDA card unless ``device="cpu"``).  An ETPK container goes to
+    :func:`decode_chunked`, as in the reference."""
     dev = resolve_device(device)
     _check_routing("decode")
     if buf[:4] == stream.MAGIC_CHUNKED:
-        raise _not_ported("ETPK chunked containers",
-                          "1, ETPK containers and region decode")
+        return decode_chunked(buf, device=dev)
     if buf[:4] in (b"EBCC", b"EBCK"):
         raise _not_ported("reference-format (EBCC/EBCK) streams",
                           "5, surfaces")
@@ -1323,43 +1365,27 @@ def encode_frames_device(x, config: CodecConfig,
                          max_batch: Optional[int] = None,
                          device="cuda") -> List[bytes]:
     """Device-resident encode of a ``(B, n_frames, h, w)`` float32 tensor
-    on its own device (or of a numpy array, uploaded to ``device``, the
-    card unless ``device="cpu"``) -> one ETPU stream per batch entry.
+    on its own device (or of a numpy array, uploaded to ``device`` one
+    sub-batch at a time, the card unless ``device="cpu"``) -> one ETPU
+    stream per batch entry.
     ``allow_nan`` masking applies to numpy inputs.
 
-    ``max_batch`` splits the batch into sub-batches pipelined as in the
-    reference: worker threads keep the device encode and fetch of later
-    sub-batches in flight while earlier ones are entropy-coded.  A
-    lossless encode runs on the host, ``max_batch`` chunks at a time."""
+    ``max_batch`` splits the batch into sub-batches pipelined by
+    :func:`_pipeline_encode_slices`.  A lossless encode runs on the host,
+    ``max_batch`` chunks at a time."""
     opts = opts or EncodeOptions.from_env()
     if config.residual_mode == cfg.RESIDUAL_LOSSLESS:
         xb = _lossless_input(x, device)
         step = max(1, max_batch or xb.shape[0])
         return [s for i in range(0, xb.shape[0], step)
                 for s in _lossless_encode_frames(xb[i:i + step], config)]
-    x, internal, masks, backend = _prepare_input(x, config, opts, device)
+    x, internal, masks, backend, dev = _prepare_input(x, config, opts, device)
     b, n_frames, h, w = x.shape
-    if max_batch is None or b <= max_batch:
-        return _finish_streams(
-            _encode_chunk_batch(x, internal, opts, backend), config, masks)
-    slices = [x[s:s + max_batch] for s in range(0, b, max_batch)]
-    run = lambda sl: _encode_to_host(sl, internal, opts)
-    depth = min(int(os.environ.get("EBCC_PIPELINE_DEPTH", "6")),
-                max(1, len(slices) - 1))
-    with ThreadPoolExecutor(max_workers=depth) as fetcher, \
-            ThreadPoolExecutor(max_workers=2) as assembler:
-        futs = [fetcher.submit(run, s) for s in slices[:depth]]
-        asm = []
-        for i, sl in enumerate(slices):
-            out_np = futs[i].result()
-            if i + depth < len(slices):
-                futs.append(fetcher.submit(run, slices[i + depth]))
-            asm.append(assembler.submit(
-                _assemble_batch, out_np, internal, opts, n_frames, h, w,
-                backend, sl.shape[0]))
-        per_slice = [f.result() for f in asm]
-    return _finish_streams([s for ss in per_slice for s in ss], config,
-                           masks)
+    step = max_batch or b
+    slices = [x[s:s + step] for s in range(0, b, step)]
+    return _finish_streams(
+        _pipeline_encode_slices(slices, internal, opts, n_frames, h, w,
+                                backend, dev), config, masks)
 
 
 def decode_frames_device(streams: List[bytes],
@@ -1404,16 +1430,17 @@ def roundtrip_frames_device(x, config: CodecConfig,
         outs = [_decode_device_batch(streams[s:s + step], dev)
                 for s in range(0, len(streams), step)]
         return streams, torch.cat(outs, dim=0)
-    x, internal, masks, backend = _prepare_input(x, config, opts, device)
+    x, internal, masks, backend, dev = _prepare_input(x, config, opts, device)
     b, n_frames, h, w = x.shape
     if max_batch is None or b <= max_batch:
         streams = _finish_streams(
-            _encode_chunk_batch(x, internal, opts, backend), config, masks)
-        return streams, _decode_device_batch(streams, x.device)
+            _pipeline_encode_slices([x], internal, opts, n_frames, h, w,
+                                    backend, dev), config, masks)
+        return streams, _decode_device_batch(streams, dev)
 
     starts = list(range(0, b, max_batch))
     slices = [x[s:s + max_batch] for s in starts]
-    run = lambda sl: _encode_to_host(sl, internal, opts)
+    run = lambda sl: _encode_to_host(_on_device(sl, dev), internal, opts)
 
     def post_batch(i, out_np, count):
         """Assemble slice i's streams, then start its device decode."""
@@ -1423,7 +1450,7 @@ def roundtrip_frames_device(x, config: CodecConfig,
         streams = _finish_streams(
             streams, config,
             None if masks is None else masks[s0:s0 + count])
-        return streams, _decode_device_batch(streams, x.device)
+        return streams, _decode_device_batch(streams, dev)
 
     depth = min(int(os.environ.get("EBCC_PIPELINE_DEPTH", "6")),
                 max(1, len(slices) - 1))
@@ -1441,3 +1468,256 @@ def roundtrip_frames_device(x, config: CodecConfig,
         results = [f.result() for f in post_futs]
     streams_out = [s for streams, _ in results for s in streams]
     return streams_out, torch.cat([d for _, d in results], dim=0)
+
+
+# ---------------------------------------------------------------------------
+# ETPK chunked containers (reference codec.py:2265-2567; parity:
+# ebcc_encode_chunking / ebcc_encode_chunking_compat / ebcc_decode_chunking,
+# ebcc_codec.c:920-1449).  The chunk grid is host numpy; each batch of
+# chunks goes to the device on its own.
+# ---------------------------------------------------------------------------
+
+def _chunk_grid(dims, chunk_dims):
+    return tuple(-(-d // c) for d, c in zip(dims, chunk_dims))
+
+
+def _gather_chunks(data: np.ndarray, chunk_dims, counts) -> np.ndarray:
+    """Every chunk of the grid, in chunk-linear order, with partial edge
+    chunks padded by replicating the edge (clamped indices; parity:
+    copy_chunk_from_data_padded, ebcc_codec.c:339-351)."""
+    idx = [np.minimum(np.arange(n)[:, None] * c + np.arange(c)[None, :],
+                      d - 1)
+           for d, c, n in zip(data.shape, chunk_dims, counts)]
+    g = data[
+        idx[0][:, None, None, :, None, None],
+        idx[1][None, :, None, None, :, None],
+        idx[2][None, None, :, None, None, :],
+    ]  # (n0, n1, n2, c0, c1, c2)
+    return g.reshape(-1, *chunk_dims)
+
+
+def _scatter_chunks(chunks: np.ndarray, dims, chunk_dims,
+                    counts) -> np.ndarray:
+    """Inverse of :func:`_gather_chunks`: the padding is dropped (parity:
+    copy_chunk_to_data_unpadded, ebcc_codec.c:353-370)."""
+    n0, n1, n2 = counts
+    c0, c1, c2 = chunk_dims
+    full = chunks.reshape(n0, n1, n2, c0, c1, c2).transpose(0, 3, 1, 4, 2, 5)
+    full = full.reshape(n0 * c0, n1 * c1, n2 * c2)
+    return np.ascontiguousarray(full[:dims[0], :dims[1], :dims[2]])
+
+
+def _container_chunk_dims(config: CodecConfig) -> Tuple[int, int, int]:
+    """The config's chunk dims (all zero = one chunk of ``dims``), checked
+    as the reference checks them (ebcc_codec.c:937-941)."""
+    chunk_dims = tuple(config.chunk_dims)
+    if all(c == 0 for c in chunk_dims):
+        chunk_dims = tuple(config.dims)
+    if any(c == 0 for c in chunk_dims):
+        raise ValueError("dims and chunk_dims must be non-zero")
+    _layout(chunk_dims)
+    return chunk_dims
+
+
+def _encode_chunk_set(chunks: np.ndarray, chunk_cfg: CodecConfig,
+                      opts: EncodeOptions, max_batch: int,
+                      device) -> List[bytes]:
+    """(N, n_frames, h, w) host chunks -> N streams, with ``chunk_cfg`` from
+    ``config.per_chunk``: :func:`encode_frames_device` in slices of
+    ``max_batch`` chunks, clamped to the int32 sparse-index space as in the
+    reference (the NaN gate and the log check run over this set)."""
+    _, n_frames, h, w = chunks.shape
+    if chunk_cfg.residual_mode != cfg.RESIDUAL_LOSSLESS:
+        hp, wp = _padded_hw(h, w, max(chunk_cfg.base_levels,
+                                      chunk_cfg.residual_levels))
+        max_batch = min(max_batch, _max_safe_batch(n_frames * hp * wp))
+    return encode_frames_device(chunks, chunk_cfg, opts, max_batch, device)
+
+
+def encode_chunked(data: np.ndarray, config: CodecConfig,
+                   opts: Optional[EncodeOptions] = None,
+                   max_batch: int = DEFAULT_MAX_BATCH,
+                   device="cuda") -> bytes:
+    """Chunked encode -> ETPK container, on ``device`` (the CUDA card unless
+    ``device="cpu"``): the chunk grid of ``config.chunk_dims`` over
+    ``config.dims``, edge chunks padded by replication, every chunk coded
+    as its own stream, ``max_batch`` chunks per device batch (uploaded one
+    batch at a time).  The bytes do not depend on ``max_batch``."""
+    dev = resolve_device(device)
+    _check_routing("encode")
+    set_level_from_env()
+    opts = opts or EncodeOptions.from_env()
+    data = np.asarray(data, dtype=np.float32).reshape(config.dims)
+    chunk_dims = _container_chunk_dims(config)
+    counts = _chunk_grid(config.dims, chunk_dims)
+    num_chunks = int(np.prod(counts))
+    chunk_size = int(np.prod(chunk_dims))
+    total = int(np.prod(config.dims))
+    padded = chunk_size * num_chunks
+    if padded - total > total // 10:
+        logger.warning(
+            "Chunk padding adds %d values over %d real values (%.2f%%)",
+            padded - total, total, 100.0 * (padded - total) / total)
+    with stage("chunked: gather"):
+        chunks = _gather_chunks(data, chunk_dims, counts).reshape(
+            num_chunks, *_layout(chunk_dims))
+    streams = _encode_chunk_set(chunks, config.per_chunk(chunk_dims), opts,
+                                max_batch, dev)
+    header = stream.ChunkedHeader(
+        dims=tuple(config.dims), chunk_dims=chunk_dims,
+        num_chunks=num_chunks, chunk_size=chunk_size)
+    return stream.pack_chunked(header, streams)
+
+
+def encode_chunked_compat(data: np.ndarray, config: CodecConfig,
+                          opts: Optional[EncodeOptions] = None,
+                          device="cuda") -> bytes:
+    """Parity: ``ebcc_encode_chunking_compat`` (ebcc_codec.c:1054-1090).
+    Without chunk dims the chunks default to (1, <=1024, <=1024) tiles (a
+    dim above the frame limit is tiled by 1024), with an 8-frame lead for
+    temporal configs; RELATIVE_ERROR becomes MAX_ERROR over the GLOBAL
+    data range, so the bound is uniform across chunks."""
+    data = np.asarray(data, dtype=np.float32).reshape(config.dims)
+    change = {}
+    if all(c == 0 for c in config.chunk_dims):
+        d = config.dims
+        # Temporal prediction runs along the chunk's leading axis, so
+        # per-frame tiles would disable it: 8-frame groups instead.
+        lead = min(d[0], 8) if config.temporal else 1
+        change["chunk_dims"] = (
+            lead,
+            1024 if d[1] > cfg.MAX_INTERNAL_IMAGE_DIM else d[1],
+            1024 if d[2] > cfg.MAX_INTERNAL_IMAGE_DIM else d[2])
+        logger.info("compat chunk dimensions: %s", change["chunk_dims"])
+    if config.residual_mode == cfg.RESIDUAL_RELATIVE_ERROR:
+        if config.allow_nan:
+            if np.isinf(data).any():
+                raise ValueError("Inf found in data")
+            rng = float(np.nanmax(data) - np.nanmin(data))
+            if not np.isfinite(rng):
+                raise ValueError("relative mode needs at least one valid "
+                                 "sample to derive the range")
+        else:
+            if not np.isfinite(data).all():
+                raise ValueError("NaN or Inf found in data")
+            rng = float(data.max() - data.min())
+        change.update(error=config.error * rng,
+                      residual_mode=cfg.RESIDUAL_MAX_ERROR)
+    return encode_chunked(data, dataclasses.replace(config, **change), opts,
+                          device=device)
+
+
+def _container_grid(header):
+    """-> the container's chunk-grid counts, after the checks the reference
+    makes of its metadata."""
+    if any(c == 0 for c in header.chunk_dims) or header.num_chunks == 0:
+        raise stream.StreamError("inconsistent chunk metadata")
+    counts = _chunk_grid(header.dims, header.chunk_dims)
+    if (int(np.prod(counts)) != header.num_chunks
+            or int(np.prod(header.chunk_dims)) != header.chunk_size):
+        raise stream.StreamError("inconsistent chunk metadata")
+    return counts
+
+
+def _decode_max_batch(header, max_batch: int) -> int:
+    n_frames, h, w = _layout(header.chunk_dims)
+    hp, wp = _padded_hw(h, w, 5)
+    return min(max_batch, _max_safe_batch(n_frames * hp * wp))
+
+
+def decode_chunked(buf: bytes, max_batch: int = DEFAULT_MAX_BATCH,
+                   device="cuda") -> np.ndarray:
+    """Decode an ETPK container -> array of its dims, on ``device`` (the
+    CUDA card unless ``device="cpu"``), ``max_batch`` chunks per device
+    batch.  A plain ETPU stream goes to :func:`decode`, as in the
+    reference (ebcc_codec.c:1326-1329)."""
+    dev = resolve_device(device)
+    if buf[:4] != stream.MAGIC_CHUNKED:
+        return decode(buf, device=dev)
+    _check_routing("decode")
+    header, chunk_streams = stream.iter_chunked(buf)
+    counts = _container_grid(header)
+    return _decode_chunk_subset(header, chunk_streams, counts, header.dims,
+                                _decode_max_batch(header, max_batch), dev)
+
+
+def _region_bounds(region, dims):
+    """``region``: 3 ``(start, stop)`` pairs or step-1 slices -> checked
+    (lo, hi) pairs."""
+    if len(region) != 3:
+        raise ValueError(f"region {region} must have 3 axes")
+    bounds = []
+    for d, r in enumerate(region):
+        if isinstance(r, slice):
+            if r.step not in (None, 1):
+                raise ValueError("region slices must have step 1")
+            lo = 0 if r.start is None else int(r.start)
+            hi = dims[d] if r.stop is None else int(r.stop)
+        else:
+            lo, hi = int(r[0]), int(r[1])
+        if not 0 <= lo < hi <= dims[d]:
+            raise ValueError(
+                f"region {region} outside dims {dims} (axis {d})")
+        bounds.append((lo, hi))
+    return bounds
+
+
+def decode_chunked_region(buf: bytes, region,
+                          max_batch: int = DEFAULT_MAX_BATCH,
+                          device="cuda") -> np.ndarray:
+    """Random-access decode of a sub-region of an ETPK container, on
+    ``device`` (the CUDA card unless ``device="cpu"``).  ``region`` is 3
+    ``(start, stop)`` pairs or step-1 slices in the container's dims.
+    Only the chunks that intersect it are parsed, entropy-decoded and sent
+    to the device; the covering block is clamped to the dims and cropped
+    to exactly the region."""
+    dev = resolve_device(device)
+    if buf[:4] != stream.MAGIC_CHUNKED:
+        raise stream.StreamError("region decode needs an ETPK container")
+    _check_routing("decode")
+    header, chunk_streams = stream.iter_chunked(buf)
+    counts = _container_grid(header)
+    bounds = _region_bounds(region, header.dims)
+    crange = [range(lo // c, -(-hi // c))
+              for (lo, hi), c in zip(bounds, header.chunk_dims)]
+    ids = [(i0 * counts[1] + i1) * counts[2] + i2
+           for i0 in crange[0] for i1 in crange[1] for i2 in crange[2]]
+    origin = tuple(r.start * c for r, c in zip(crange, header.chunk_dims))
+    # Edge chunks decode to full chunk dims (they were encoded padded):
+    # the covered block is clamped to the dims.
+    block_dims = tuple(min(o + len(r) * c, d) - o for o, r, c, d in zip(
+        origin, crange, header.chunk_dims, header.dims))
+    block = _decode_chunk_subset(
+        header, [chunk_streams[i] for i in ids],
+        tuple(len(r) for r in crange), block_dims,
+        _decode_max_batch(header, max_batch), dev)
+    sl = tuple(slice(lo - o, hi - o) for (lo, hi), o in zip(bounds, origin))
+    return np.ascontiguousarray(block[sl])
+
+
+def _decode_chunk_subset(header, chunk_streams, counts, out_dims, max_batch,
+                         device) -> np.ndarray:
+    """Decode chunk streams laid out on a ``counts`` grid into an array of
+    ``out_dims`` (the grid's coverage, clipped to the container's dims).
+    One worker parses, entropy-decodes and uploads batch k+1 while the
+    device decodes batch k and the host fetches it.  Lossless chunks
+    decode on the host only."""
+    arr = _maybe_lossless_batch(chunk_streams)
+    if arr is None:
+        batches = [chunk_streams[s:s + max_batch]
+                   for s in range(0, len(chunk_streams), max_batch)]
+        decoded = []
+        with ThreadPoolExecutor(max_workers=1) as worker:
+            fut = worker.submit(_decode_streams_device, batches[0], device)
+            for i in range(len(batches)):
+                parts = fut.result()
+                if i + 1 < len(batches):
+                    fut = worker.submit(_decode_streams_device,
+                                        batches[i + 1], device)
+                with stage("dec: output fetch"):
+                    decoded.append(_finish_host(*parts))
+        arr = np.concatenate(decoded, axis=0)
+    with stage("chunked: scatter"):
+        return _scatter_chunks(arr.reshape(len(chunk_streams),
+                                           *header.chunk_dims),
+                               out_dims, header.chunk_dims, counts)

@@ -36,6 +36,7 @@ MAGIC_CHUNKED = b"ETPK"
 # 1 CAB payloads would silently desync the range coder, so the frame
 # version was bumped to make pre-round-2 streams fail loudly instead.
 FRAME_VERSION = 2
+CHUNKED_VERSION = 1
 
 FLAG_CONST = 0x01
 FLAG_HAS_RESIDUAL = 0x02
@@ -85,6 +86,10 @@ FLAG_LOSSLESS = 0x80
 _FRAME_FMT = "<4s4B4I4f8B3Q"
 FRAME_HEADER_SIZE = struct.calcsize(_FRAME_FMT)
 assert FRAME_HEADER_SIZE == 72
+
+_CHUNKED_FMT = "<4sIII3Q3QQQ"
+CHUNKED_HEADER_SIZE = struct.calcsize(_CHUNKED_FMT)
+assert CHUNKED_HEADER_SIZE == 80
 
 
 class StreamError(ValueError):
@@ -336,3 +341,61 @@ def append_mask_section(stream_bytes: bytes, entropy_id: int,
     b += struct.pack(_MASK_SECTION_FMT, entropy_id, 0, 0, 0, len(payload))
     b += payload
     return bytes(b)
+
+
+@dataclasses.dataclass
+class ChunkedHeader:
+    dims: tuple
+    chunk_dims: tuple
+    num_chunks: int
+    chunk_size: int
+
+    def pack(self) -> bytes:
+        return struct.pack(
+            _CHUNKED_FMT, MAGIC_CHUNKED, CHUNKED_VERSION, 3, 0,
+            *self.dims, *self.chunk_dims, self.num_chunks, self.chunk_size)
+
+    @classmethod
+    def unpack(cls, buf: bytes) -> "ChunkedHeader":
+        if len(buf) < CHUNKED_HEADER_SIZE:
+            raise StreamError("truncated ETPK header")
+        vals = struct.unpack_from(_CHUNKED_FMT, buf)
+        magic, version, ndims = vals[0], vals[1], vals[2]
+        if magic != MAGIC_CHUNKED:
+            raise StreamError(f"bad ETPK magic {magic!r}")
+        if version != CHUNKED_VERSION:
+            raise StreamError(f"unsupported ETPK version {version}")
+        if ndims != 3:
+            raise StreamError(f"unsupported ETPK ndims {ndims}")
+        return cls(tuple(vals[4:7]), tuple(vals[7:10]), vals[10], vals[11])
+
+
+def pack_chunked(header: ChunkedHeader, chunk_streams) -> bytes:
+    """The ETPK container: the 80-byte header, then one ``[u64 size]
+    [stream]`` record per chunk in chunk-linear order."""
+    parts = [header.pack()]
+    for s in chunk_streams:
+        parts.append(struct.pack("<Q", len(s)))
+        parts.append(s)
+    return b"".join(parts)
+
+
+def iter_chunked(buf: bytes):
+    """-> (header, [chunk_stream, ...]) with every record bounds-checked
+    and no trailing bytes allowed (parity: ebcc_decode_chunking validation,
+    ebcc_codec.c:1337-1446)."""
+    header = ChunkedHeader.unpack(buf)
+    off = CHUNKED_HEADER_SIZE
+    streams = []
+    for i in range(header.num_chunks):
+        if off + 8 > len(buf):
+            raise StreamError(f"missing chunk {i} size")
+        (size,) = struct.unpack_from("<Q", buf, off)
+        off += 8
+        if off + size > len(buf):
+            raise StreamError(f"truncated chunk {i} payload")
+        streams.append(buf[off:off + size])
+        off += size
+    if off != len(buf):
+        raise StreamError("trailing payload bytes")
+    return header, streams
