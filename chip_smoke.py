@@ -9,8 +9,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. Card and build: PyTorch version, the card's name and power limit, whether
    ``zstandard`` is importable (without it the codec writes STORE payloads,
-   so the printed CR is not the codec's), and the ``nvcc`` build of every
-   kernel source under ``ebcc_tpu_torch/csrc/``.
+   so the printed CR is not the codec's), the ``nvcc`` build of every
+   kernel source under ``ebcc_tpu_torch/csrc/`` and, at the same time, the
+   ``c++`` build of the host libraries.
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shape (4, 1, 736, 1440): K1 ``dwt2d_quantize`` at 5 levels, its
    float variant ``dwt2d_transform`` at 3 levels, K2 ``idwt2d_dequant`` at 5
@@ -86,8 +87,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     through ``encode_chunked_compat`` with ``temporal=True``: 4 chunks of
     8 frames, every record byte-identical to phase 9's stream, every frame
     within 0.5.
+12. Host C++ (``ebcc_tpu_torch/csrc/host/``): (a) the build seconds of
+    ``libebcc_host.so`` (built in phase 1 beside the kernels), whether
+    ``zstd.h`` and ``libzstd`` exist, and the build of
+    ``libebcc_native_codec.so`` or the ``RuntimeError`` a native route
+    raises without it; (b) the 32 frames of phase 3 through
+    ``roundtrip_frames_device`` with ``entropy_backend`` cab, cab2 and
+    auto: every frame within 0.5, K1 and K2 launched, the decode again
+    bit-equal, stream bytes, CR and host stage times; (c) the native
+    packer and unpacker against their numpy twins: phase 3's encode
+    byte-identical with ``EBCC_NO_NATIVE_PACK=1``, phase 3's and phase 9's
+    streams decoded bit-equal with ``EBCC_NO_NATIVE_UNPACK=1``, with the
+    ``dec: unpack planes`` thread time and decode walls of each; (d) phase
+    8's rate roundtrip with the host assembly time per sub-batch; (e)
+    where the host codec builds, 4 frames encoded through it and decoded
+    on the card, (b)'s streams and phase 11a's container decoded through
+    it, all within 0.5; where it does not, a routed call must raise.
 
-Phases 3, 5, 7, 8 and 9 print the total stream bytes or the budget use of
+Phases 3, 5, 7, 8, 9 and 12 print the total stream bytes or the budget use of
 their roundtrips, and phases 3, 8 and 9 the launches of each kernel in the
 run.
 
@@ -99,6 +116,7 @@ the base field; without it the base is synthetic.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -1151,6 +1169,234 @@ def phase_container_temporal(et, dh, drifting, temporal_streams, card):
                              f"{per_frame}")
 
 
+def stage_s(snap, name):
+    """Total seconds of a timing stage in a snapshot (0.0 if absent)."""
+    return snap.get(name, {}).get("total_s", 0.0)
+
+
+def timed_stages(fn, *args, **kw):
+    """-> (fn's result, wall seconds, timing snapshot of the run): stage
+    timing (``utils.timing``) on for the call only."""
+    from ebcc_tpu_torch.utils import timing
+    was = timing.ENABLED
+    timing.reset_stats()
+    timing.ENABLED = True
+    try:
+        out, wall = timed(fn, *args, **kw)
+    finally:
+        timing.ENABLED = was
+    return out, wall, timing.snapshot()
+
+
+@contextlib.contextmanager
+def env_set(**kw):
+    """Environment variables set for a ``with`` block, then restored."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update(kw)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def error_line(e):
+    """The line of an exception's message that names the compiler error
+    (its first line when none does)."""
+    lines = str(e).splitlines()
+    return next((ln.strip() for ln in lines if "error" in ln), lines[0])
+
+
+def phase_native_build(build_seconds, codec_error):
+    """Phase 12a: the host libraries' build (phase 1 built them) and
+    whether zstd is there for the host codec."""
+    import ctypes.util
+    print(f"host library libebcc_host.so built in "
+          f"{build_seconds['ebcc_host']:.2f} s (c++ -O3 -ffp-contract=off)")
+    print(f"zstd.h: {'present' if os.path.exists('/usr/include/zstd.h') else 'absent'} "
+          f"at /usr/include; libzstd: {ctypes.util.find_library('zstd')}")
+    if codec_error is None:
+        print(f"libebcc_native_codec.so built in "
+              f"{build_seconds['ebcc_native_codec']:.2f} s")
+    else:
+        print(f"libebcc_native_codec.so cannot be built; a native route "
+              f"raises RuntimeError: {error_line(codec_error)}")
+
+
+def phase_cab_main_path(torch, et, dh, frames, card):
+    """Phase 12b: the 32 frames through ``roundtrip_frames_device`` at
+    MAX_ERROR 0.5, sub-batches of 4, with ``entropy_backend`` cab, cab2 and
+    auto: every frame within 0.5 on the card, K1 and K2 launched, the
+    decode again bit-equal; stream bytes, CR, wall time and the host
+    stages.  Returns backend -> streams."""
+    import dataclasses
+    n = frames.shape[0]
+    x = torch.from_numpy(frames).reshape(n, 1, H, W).cuda()
+    opts = et.EncodeOptions()
+    out = {}
+    for backend in ("cab", "cab2", "auto"):
+        config = dataclasses.replace(era5_config(et, n),
+                                     entropy_backend=backend)
+        torch.cuda.synchronize()
+        dh.reset_launch_counts()
+        (streams, dec), wall, snap = timed_stages(
+            et.roundtrip_frames_device, x, config, opts, max_batch=4)
+        torch.cuda.synchronize()
+        launches = dh.launch_counts()
+        maxerr = float((x - dec).abs().max())
+        nbytes = sum(len(s) for s in streams)
+        print(f"CAB main path ({backend}) on {card}: {n} frames, roundtrip "
+              f"{wall:.4f} s, stream bytes {nbytes}, CR "
+              f"{x.numel() * 4 / nbytes:.4f}, max error {maxerr:.6f}, "
+              f"assemble+zstd {stage_s(snap, 'assemble+zstd'):.4f} s, "
+              f"dec: entropy decode {stage_s(snap, 'dec: entropy decode'):.4f}"
+              f" s, dec: unpack planes "
+              f"{stage_s(snap, 'dec: unpack planes'):.4f} s (thread time), "
+              f"launches {launches}")
+        if not (dec.shape == x.shape and bool(torch.isfinite(dec).all())):
+            raise AssertionError(f"{backend}: bad decoded batch")
+        if maxerr > config.error:
+            raise AssertionError(f"{backend}: max error {maxerr}")
+        missing = [k for k in ("dwt2d_quantize", "idwt2d_dequant")
+                   if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"{backend}: kernels not launched: "
+                                 f"{missing}")
+        if not torch.equal(dec, et.decode_frames_device(streams,
+                                                        max_batch=4)):
+            raise AssertionError(f"{backend}: decode_frames_device differs "
+                                 "from the roundtrip's decode")
+        out[backend] = streams
+    return out
+
+
+def phase_pack_unpack_twins(torch, et, frames, main_streams,
+                            temporal_streams, card):
+    """Phase 12c: the native packer and unpacker against their numpy
+    twins, in this call: phase 3's encode byte-identical with
+    ``EBCC_NO_NATIVE_PACK=1``; phase 3's and phase 9's streams decode
+    bit-equal with ``EBCC_NO_NATIVE_UNPACK=1``; host stage times and
+    decode walls (native, twin, native)."""
+    n = frames.shape[0]
+    x = torch.from_numpy(frames).reshape(n, 1, H, W).cuda()
+    config = era5_config(et, n)
+    opts = et.EncodeOptions()
+    runs = {}
+    for name, env in (("native", {}), ("numpy twin",
+                                       {"EBCC_NO_NATIVE_PACK": "1"})):
+        with env_set(**env):
+            streams, wall, snap = timed_stages(
+                et.encode_frames_device, x, config, opts, max_batch=4)
+        runs[name] = streams
+        print(f"pack ({name}) on {card}: encode_frames_device {wall:.4f} "
+              f"s, assemble+zstd {stage_s(snap, 'assemble+zstd'):.4f} s "
+              f"(thread time)")
+    if runs["native"] != main_streams or runs["numpy twin"] != main_streams:
+        raise AssertionError("native and numpy packers give other streams")
+    print("pack: native and numpy twin streams byte-identical to phase 3's")
+
+    for label, streams, mb in (("MAX_ERROR", main_streams, 4),
+                               ("temporal", temporal_streams, 2)):
+        ref = None
+        for name in ("native", "numpy twin", "native"):
+            env = {"EBCC_NO_NATIVE_UNPACK": "1"} if name != "native" else {}
+            per_batch = []
+            with env_set(**env):
+                dec, wall, snap = timed_stages(et.decode_frames_device,
+                                               streams, max_batch=mb)
+                torch.cuda.synchronize()
+                for i in range(0, len(streams), mb):
+                    _, t = timed(et.decode_frames_device, streams[i:i + mb])
+                    torch.cuda.synchronize()
+                    per_batch.append(t)
+            if ref is None:
+                ref = dec
+            elif not torch.equal(dec, ref):
+                raise AssertionError(f"{label}: {name} unpack decodes "
+                                     "other values")
+            print(f"unpack {label} ({name}) on {card}: decode_frames_device "
+                  f"{wall:.4f} s for {len(streams)} streams, dec: unpack "
+                  f"planes {stage_s(snap, 'dec: unpack planes'):.4f} s, dec: "
+                  f"entropy decode {stage_s(snap, 'dec: entropy decode'):.4f}"
+                  f" s (thread time); per sub-batch of {mb} alone "
+                  f"{[round(t, 4) for t in per_batch]} s")
+    print("unpack: native and numpy twin decodes bit-equal")
+
+
+def phase_rate_assembly(torch, et, dh, frames, card):
+    """Phase 12d: phase 8's rate roundtrip (base_cr 30), with the host
+    assembly time per sub-batch of 4 (the partial-plane bisection)."""
+    n = frames.shape[0]
+    x = torch.from_numpy(frames).reshape(n, 1, H, W).cuda()
+    (_, _, launches), wall, snap = timed_stages(rate_roundtrip, torch, et,
+                                                dh, x, 30, card)
+    asm = snap.get("assemble+zstd", {"count": 0, "total_s": 0.0})
+    print(f"rate assembly on {card}: roundtrip {wall:.4f} s with its "
+          f"warm-up, {asm['count']} sub-batches of 4 (the warm-up's "
+          f"included), assemble+zstd {asm['total_s']:.4f} s in all, "
+          f"{asm['total_s'] / max(asm['count'], 1):.4f} s per sub-batch; "
+          f"launches {launches}")
+    missing = [k for k in ("dwt2d_quantize", "idwt2d_dequant")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the rate path: "
+                             f"{missing}")
+
+
+def phase_native_routing(et, frames, cab_streams, blob, codec_error, card):
+    """Phase 12e: native routing.  Where the host codec builds: 4 frames
+    encoded through it and decoded on the card, the card's CAB streams of
+    12b decoded through it, and one container through both routes, all
+    within 0.5.  Where it does not, a routed call must raise.  The host
+    codec codes CAB here: the card's machine may lack ``zstandard``, which
+    the card's decode of a zstd payload needs."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+    config = dataclasses.replace(era5_config(et, 4), entropy_backend="cab")
+    four = frames[:4]
+    if codec_error is not None:
+        with env_set(EBCC_ENCODE_BACKEND="native"):
+            try:
+                et.encode_chunked(four, config)
+            except RuntimeError as e:
+                print(f"native routing on {card}: not available, a routed "
+                      f"encode raises RuntimeError ({error_line(e)})")
+                return
+        raise AssertionError("a native route ran without its library")
+    with env_set(EBCC_ENCODE_BACKEND="native"):
+        routed, t_enc = timed(et.encode_chunked, four, config)
+    dev, t_dev_dec = timed(et.decode_chunked, routed)
+    err = float(np.abs(dev - four).max())
+    print(f"native routing on {card}: 4 frames encoded through the host "
+          f"codec in {t_enc:.4f} s ({len(routed)} bytes), decoded on the "
+          f"card in {t_dev_dec:.4f} s, max error {err:.6f}")
+    if err > 0.5:
+        raise AssertionError(f"native encode, card decode: error {err}")
+    n = frames.shape[0]
+    with env_set(EBCC_DECODE_BACKEND="native"):
+        for backend, streams in cab_streams.items():
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                outs, t = timed(lambda: list(pool.map(et.decode, streams)))
+            err = float(np.abs(np.concatenate(outs) - frames).max())
+            print(f"native decode of the card's {backend} streams: {t:.4f} "
+                  f"s for {n} streams, max error {err:.6f}")
+            if err > 0.5:
+                raise AssertionError(f"native decode of {backend}: {err}")
+        back, t_nat = timed(et.decode_chunked, routed)
+        card_blob, t_nat2 = timed(et.decode_chunked, blob)
+    err_n = float(np.abs(back - four).max())
+    err_c = float(np.abs(card_blob - frames).max())
+    print(f"container through both routes: host-encoded container decoded "
+          f"by the host codec in {t_nat:.4f} s (max error {err_n:.6f}); "
+          f"phase 11a's card container decoded by it in {t_nat2:.4f} s "
+          f"(max error {err_c:.6f})")
+    if max(err_n, err_c) > 0.5:
+        raise AssertionError("native container decode over the bound")
+
+
 def main():
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     import torch
@@ -1164,6 +1410,7 @@ def main():
         return 2
     sys.path.insert(0, root)
     import ebcc_tpu_torch as et
+    from ebcc_tpu_torch import native
     from ebcc_tpu_torch.ops import _build
     from ebcc_tpu_torch.ops import dwt_hopper as dh
 
@@ -1180,12 +1427,27 @@ def main():
               "printed below is not the codec's")
     sources = sorted(f[:-3] for f in os.listdir(_build.CSRC)
                      if f.endswith(".cu"))
+
+    def host_codec():
+        """The native codec's build; its failure is recorded (phase 12)."""
+        try:
+            native.load_codec()
+        except RuntimeError as e:
+            return e
+        return None
+
     t0 = time.perf_counter()
     from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
-        list(pool.map(_build.load, sources))
-    print(f"built {sources} in {time.perf_counter() - t0:.2f} s "
-          f"({_build.BUILD_SECONDS})")
+    with ThreadPoolExecutor(max_workers=len(sources) + 2) as pool:
+        builds = [pool.submit(_build.load, s) for s in sources]
+        builds.append(pool.submit(_build.load_host, "ebcc_host"))
+        codec_build = pool.submit(host_codec)
+        for f in builds:
+            f.result()
+        codec_error = codec_build.result()
+    print(f"built {sources}, libebcc_host.so and "
+          f"{'libebcc_native_codec.so' if codec_error is None else 'not the native codec'} "
+          f"in {time.perf_counter() - t0:.2f} s ({_build.BUILD_SECONDS})")
 
     # ---- phase 2: kernels against their plain versions ----
     frames = load_frames(32)
@@ -1224,6 +1486,14 @@ def main():
     phase_container_compat(et, dh, tall, card)
     phase_container_stream(et, frames, blob, card)
     phase_container_temporal(et, dh, drifting, temporal_streams, card)
+
+    # ---- phase 12: CAB, native packer/unpacker, native routing ----
+    phase_native_build(_build.BUILD_SECONDS, codec_error)
+    cab_streams = phase_cab_main_path(torch, et, dh, frames, card)
+    phase_pack_unpack_twins(torch, et, frames, main_streams,
+                            temporal_streams, card)
+    phase_rate_assembly(torch, et, dh, frames, card)
+    phase_native_routing(et, frames, cab_streams, blob, codec_error, card)
 
     src = "ebcc_tpu_torch/csrc/dwt97.cu"
     kernels = []

@@ -28,9 +28,23 @@ stream; Inf always raises.  Tensors are not masked (allow_nan is a
 host-input feature); the port refuses a non-finite tensor rather than ship
 a garbage stream.
 
-Features the port does not cover yet (the CAB coder and native routing,
-the u16 upload, reference-format streams) raise ``NotImplementedError``
-naming the ROADMAP item that adds them.
+Entropy coding and plane packing run on the host, in the port's own C++
+(``csrc/host/``, :mod:`ebcc_tpu_torch.native`): the CAB coders
+(``entropy_backend`` "cab", "cab2", "auto") beside zstd, the sparse packer
+of every encode (``EBCC_NO_NATIVE_PACK=1`` selects its numpy twin) and the
+plane unpacker of every decode (``EBCC_NO_NATIVE_UNPACK=1``, likewise).
+
+Native routing: ``EBCC_ENCODE_BACKEND`` / ``EBCC_DECODE_BACKEND`` =
+``native`` (or ``host``) sends ``encode``, ``encode_chunked`` (and so
+``encode_chunked_compat``), ``decode``, ``decode_chunked`` and
+``decode_chunked_region`` to the port's copy of the host C++ codec, which
+needs zstd to build and raises ``RuntimeError`` when it cannot be built.
+Unset or ``auto`` stays on the device path: the reference's automatic
+choice from a link probe is not ported (ROADMAP Queue 1 item 6).
+
+Features the port does not cover yet (the u16 upload, reference-format
+streams) raise ``NotImplementedError`` naming the ROADMAP item that adds
+them.
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ import numpy as np
 import torch
 
 from .. import config as cfg
+from .. import native
 from ..config import CodecConfig, EncodeOptions
 from ..device import resolve_device
 from ..utils.logging import TRACE, logger, set_level_from_env, trace
@@ -112,14 +127,19 @@ def _check_supported(config: CodecConfig, opts: EncodeOptions,
     return entropy.backend_id(config)
 
 
-def _check_routing(kind: str):
-    """The reference routes host-destined calls to its native C++ codec on
-    ``EBCC_ENCODE_BACKEND`` / ``EBCC_DECODE_BACKEND`` = native (or host);
-    the port has no copy of that codec yet."""
+def _native_routed(kind: str) -> bool:
+    """Whether ``EBCC_ENCODE_BACKEND`` / ``EBCC_DECODE_BACKEND`` (``kind``
+    "encode" / "decode") routes the call to the port's host codec:
+    ``native`` or ``host`` do (reference ``routing.explicit``,
+    codec.py:1498-1531, :2212-2240).  An unset value, ``auto`` or
+    ``device`` stays on the device path; the reference's link-probe choice
+    is ROADMAP Queue 1 item 6.  A routed call whose library cannot be built
+    raises ``RuntimeError`` here, before any work."""
     v = os.environ.get(f"EBCC_{kind.upper()}_BACKEND", "").lower()
-    if v in ("native", "host"):
-        raise _not_ported(f"native {kind} routing",
-                          "2, CAB coder and native packer/unpacker")
+    if v not in ("native", "host"):
+        return False
+    native.load_codec()
+    return True
 
 
 def _check_frames_input(x):
@@ -439,38 +459,47 @@ def _lossless_input(x, device) -> np.ndarray:
 # Host-side stream assembly
 # ---------------------------------------------------------------------------
 
-def build_partial_payload(v, stored_cut: int, cut: int, pb: int,
-                          num_planes: int):
-    """Rate-mode payload with a partial next-finer plane (reference
-    codec.py:543-568, ``stream.FLAG_BASE_PARTIAL``): the full planes of the
-    magnitudes at ``cut``, then the first ``pb`` bytes of the packed plane
-    at ``cut - 1`` (flat scan order), then the sign plane of the
-    coefficients significant in that truncated representation.  Returns
-    (payload_bytes, top); the header records ``base_cut = cut - 1``."""
-    assert cut > stored_cut and pb >= 0
+def partial_payload_builder(v, stored_cut: int, cut: int, num_planes: int):
+    """Rate-mode payloads with a partial next-finer plane (reference
+    ``build_partial_payload``, codec.py:543-568, ``FLAG_BASE_PARTIAL``) ->
+    ``pb -> (payload_bytes, top)``: the full planes of the magnitudes at
+    ``cut``, then the first ``pb`` bytes of the packed plane at ``cut - 1``
+    (flat scan order), then the sign plane of the coefficients significant
+    in that truncated representation; the header records ``base_cut = cut
+    - 1``.  The full planes, the packed next plane and the two sign rows a
+    payload can take do not depend on ``pb``, so they are built once per
+    (v, cut).  Rows hold whole bytes (the padded width is a multiple of 8),
+    so the sign row is that of the refined magnitudes for its first ``pb``
+    bytes and that of the magnitudes at ``cut`` after them."""
+    assert cut > stored_cut
     mag = np.abs(v) >> (cut - stored_cut)
     mx = int(mag.max()) if mag.size else 0
     msb = mx.bit_length()
     top = num_planes - cut - msb
-    parts = [
+    full = b"".join(
         np.packbits(((mag >> s) & 1).astype(np.uint8), axis=-1).tobytes()
-        for s in range(msb - 1, -1, -1)
-    ]
-    pbit = ((np.abs(v) >> (cut - 1 - stored_cut)) & 1).astype(np.uint8)
-    flat = pbit.reshape(-1)
-    covered = np.zeros_like(flat)
-    covered[: pb * 8] = flat[: pb * 8]
-    partial = np.packbits(covered)[:pb].tobytes()
-    vis = (mag.astype(np.int64) << 1) | covered.reshape(mag.shape)
-    signs = np.packbits(((v < 0) & (vis > 0)).astype(np.uint8), axis=-1)
-    return b"".join(parts) + partial + signs.tobytes(), top
+        for s in range(msb - 1, -1, -1))
+    pbit = ((np.abs(v) >> (cut - 1 - stored_cut)) & 1).astype(bool)
+    plane = np.packbits(pbit.reshape(-1)).tobytes()
+    neg = v < 0
+    signs_at_cut = np.packbits(neg & (mag > 0)).tobytes()
+    signs_refined = np.packbits(neg & ((mag > 0) | pbit)).tobytes()
+
+    def at(pb: int):
+        return (full + plane[:pb] + signs_refined[:pb] + signs_at_cut[pb:],
+                top)
+
+    return at
+
 
 def build_layer_payload_sparse(pos, vals, shape, stored_cut: int, cut: int,
                                num_planes: int):
     """One layer's raw payload for one chunk from its sparse exchange pair
-    (reference numpy path, ebcc_tpu/core/codec.py:121-164; same bytes as
-    the native packer): the bitplane stack of the magnitudes at ``cut``,
-    MSB first, then the sign plane of coefficients significant at the cut.
+    (reference ebcc_tpu/core/codec.py:121-164): the bitplane stack of the
+    magnitudes at ``cut``, MSB first, then the sign plane of coefficients
+    significant at the cut.  The port's native packer
+    (``native.sparse_to_planes``) writes it; ``EBCC_NO_NATIVE_PACK=1``
+    selects the numpy twin below, which writes the same bytes.
 
     pos: int32 flat positions within the chunk's (D0, Hp, Wp) space;
     vals: signed kept-values at ``stored_cut``.
@@ -489,6 +518,9 @@ def build_layer_payload_sparse(pos, vals, shape, stored_cut: int, cut: int,
         return b"", min(num_planes - cut, 255), 0
     msb = mx.bit_length()
     top = num_planes - cut - msb
+    if not os.environ.get("EBCC_NO_NATIVE_PACK"):
+        return (native.sparse_to_planes(pos, v32, shift, msb, d0v, hpv, wpv),
+                top, msb)
     plane_bytes = d0v * hpv * (wpv // 8)
     payload = np.zeros((msb + 1) * plane_bytes, np.uint8)
     byte = (pos >> 3).astype(np.int64)
@@ -502,11 +534,14 @@ def build_layer_payload_sparse(pos, vals, shape, stored_cut: int, cut: int,
     return payload.tobytes(), top, msb
 
 
-def _entropy_encode(payload: bytes, backend: int, level: int):
-    """-> (compressed, backend_id_used)."""
+def _entropy_encode(payload: bytes, backend: int, level: int, meta=None):
+    """-> (compressed, backend id used); AUTO codes with both real backends
+    and keeps the smaller (reference codec.py:166-173).  ``meta`` =
+    (kept, d0, hp, wp, levels) of the payload, which the CAB coders need."""
     if not payload:
-        return b"", backend
-    return entropy.compress(payload, backend, level), backend
+        return b"", (entropy.BACKEND_ZSTD
+                     if backend == entropy.BACKEND_AUTO else backend)
+    return entropy.compress_best(payload, backend, level, meta)
 
 
 class _SparseBatch:
@@ -607,21 +642,25 @@ def _assemble_error_mode_stream(res: _ChunkResult, config: CodecConfig,
     pure_feasible = bool(res.pure_feasible)
     store_cut = int(res.store_cut)
     shape = res.sparse.shape
+    base_meta = lambda kept: (kept, *shape, config.base_levels)
+    res_meta = lambda kept: (kept, *shape, config.residual_levels)
 
     # Candidate A: base @ base_cut (+ residual @ res_cut unless skipped).
     base_pos, base_vals = res.base_pair()
-    base_payload, base_top, _ = build_layer_payload_sparse(
+    base_payload, base_top, base_kept = build_layer_payload_sparse(
         base_pos, base_vals, shape, store_cut, base_cut, cfg.BASE_NUM_PLANES)
-    base_comp, base_be = _entropy_encode(base_payload, backend, level)
+    base_comp, base_be = _entropy_encode(base_payload, backend, level,
+                                         base_meta(base_kept))
 
     use_residual = (not skip_residual) and res_feasible
     res_comp = b""
     res_top = 0
     res_be = 0
     if use_residual:
-        res_payload, res_top, _ = build_layer_payload_sparse(
+        res_payload, res_top, res_kept = build_layer_payload_sparse(
             *res.res_pair(), shape, res_cut, res_cut, cfg.RES_NUM_PLANES)
-        res_comp, res_be = _entropy_encode(res_payload, backend, level)
+        res_comp, res_be = _entropy_encode(res_payload, backend, level,
+                                           res_meta(res_kept))
         if len(res_comp) <= RESIDUAL_DROP_BYTES:
             # Drop only if the base layer alone still meets the bound in
             # some shippable form (the adjustment gate below picks it).
@@ -642,10 +681,11 @@ def _assemble_error_mode_stream(res: _ChunkResult, config: CodecConfig,
                 "shipping best effort (finest cut).", float(res.target_abs))
         choose_pure = True
     elif use_residual and pure_feasible and not opts.disable_pure_base_fallback:
-        pure_payload, pure_top, _ = build_layer_payload_sparse(
+        pure_payload, pure_top, pure_kept = build_layer_payload_sparse(
             base_pos, base_vals, shape, store_cut, pure_cut,
             cfg.BASE_NUM_PLANES)
-        pure_comp, pure_be = _entropy_encode(pure_payload, backend, level)
+        pure_comp, pure_be = _entropy_encode(pure_payload, backend, level,
+                                             base_meta(pure_kept))
         if len(pure_comp) < len(base_comp) + len(res_comp):
             logger.info(
                 "Pure base compression (%d) is better than base (%d) + "
@@ -654,11 +694,11 @@ def _assemble_error_mode_stream(res: _ChunkResult, config: CodecConfig,
 
     if choose_pure:
         if pure_comp is None:
-            pure_payload, pure_top, _ = build_layer_payload_sparse(
+            pure_payload, pure_top, pure_kept = build_layer_payload_sparse(
                 base_pos, base_vals, shape, store_cut, pure_cut,
                 cfg.BASE_NUM_PLANES)
             pure_comp, pure_be = _entropy_encode(pure_payload, backend,
-                                                 level)
+                                                 level, base_meta(pure_kept))
         base_comp, base_cut, base_top = pure_comp, pure_cut, pure_top
         base_be = pure_be
         use_residual = False
@@ -755,16 +795,22 @@ def _assemble_temporal_stream(res: _ChunkResult, config: CodecConfig,
         lo, hi = np.searchsorted(pos, [t * fsz, (t + 1) * fsz])
         return pos[lo:hi] - t * fsz, vals[lo:hi]
 
-    base_payload, base_top, _ = build_layer_payload_sparse(
+    # Deltas are residual-scale layers: their CAB model takes res_levels.
+    base_meta = lambda kept: (kept, *fshape, config.base_levels)
+    res_meta = lambda kept: (kept, *fshape, config.residual_levels)
+
+    base_payload, base_top, base_kept = build_layer_payload_sparse(
         *frame_pair(0, 0), fshape, store_cut, base_cut, cfg.BASE_NUM_PLANES)
-    base_comp, base_be = _entropy_encode(base_payload, backend, level)
+    base_comp, base_be = _entropy_encode(base_payload, backend, level,
+                                         base_meta(base_kept))
     res_comp = b""
     res_top = 0
     res_be = 0
     if use_residual:
-        res_payload, res_top, _ = build_layer_payload_sparse(
+        res_payload, res_top, res_kept = build_layer_payload_sparse(
             *frame_pair(1, 0), fshape, res_cut, res_cut, cfg.RES_NUM_PLANES)
-        res_comp, res_be = _entropy_encode(res_payload, backend, level)
+        res_comp, res_be = _entropy_encode(res_payload, backend, level,
+                                           res_meta(res_kept))
 
     t_cut = np.asarray(res.t_cut)
     t_rmin = np.asarray(res.t_rmin, np.float32)
@@ -772,9 +818,10 @@ def _assemble_temporal_stream(res: _ChunkResult, config: CodecConfig,
 
     def delta_one(t):
         cut_t = int(t_cut[t - 1])
-        payload, top_t, _ = build_layer_payload_sparse(
+        payload, top_t, kept_t = build_layer_payload_sparse(
             *frame_pair(1, t), fshape, cut_t, cut_t, cfg.DELTA_NUM_PLANES)
-        comp_t, be_t = _entropy_encode(payload, backend, level)
+        comp_t, be_t = _entropy_encode(payload, backend, level,
+                                       res_meta(kept_t))
         return (stream.DeltaRecord(
             rmin=float(t_rmin[t - 1]), rmax=float(t_rmax[t - 1]),
             cut=cut_t, top=top_t, entropy=be_t, comp_size=len(comp_t)),
@@ -851,10 +898,11 @@ def _assemble_rate_mode_stream(res: _ChunkResult, config: CodecConfig,
     def payload_at(c):
         if c >= cfg.BASE_NUM_PLANES:
             return b"", entropy.BACKEND_ZSTD, 0
-        pl, top, _ = build_layer_payload_sparse(
+        pl, top, kept = build_layer_payload_sparse(
             base_pos, base_vals, res.sparse.shape, store_cut, c,
             cfg.BASE_NUM_PLANES)
-        comp, be = _entropy_encode(pl, backend, level)
+        comp, be = _entropy_encode(pl, backend, level,
+                                   (kept, d0v, hpv, wpv, config.base_levels))
         return comp, be, top
 
     comp, base_be, top = payload_at(cut)
@@ -873,13 +921,13 @@ def _assemble_rate_mode_stream(res: _ChunkResult, config: CodecConfig,
     if store_cut < cut <= cfg.BASE_NUM_PLANES and len(comp) < budget:
         plane_bytes = d0v * hpv * wpv // 8
         zbk = entropy.default_backend()
-        base_v = res.base_values()
+        partial_at = partial_payload_builder(res.base_values(), store_cut,
+                                             cut, cfg.BASE_NUM_PLANES)
         lo, hi = 0, plane_bytes
         best = None
         for _ in range(8):
             mid = (lo + hi + 1) // 2
-            pl, ptop = build_partial_payload(base_v, store_cut, cut, mid,
-                                             cfg.BASE_NUM_PLANES)
+            pl, ptop = partial_at(mid)
             trial = entropy.compress(pl, zbk, level)
             if len(trial) <= budget:
                 lo = mid
@@ -1040,13 +1088,20 @@ def encode(data: np.ndarray, config: CodecConfig,
     """Encode one logical array (= one chunk) -> ETPU stream bytes, on
     ``device`` (the CUDA card unless ``device="cpu"``)."""
     resolve_device(device)
-    _check_routing("encode")
     set_level_from_env()
     opts = opts or EncodeOptions.from_env()
     data = np.asarray(data, dtype=np.float32).reshape(config.dims)
     n_frames, h, w = _layout(config.dims)
     logger.info("%s", config.describe())
     data = data.reshape(1, n_frames, h, w)
+    if _native_routed("encode"):
+        # Reference codec.py:1545-1557: the host codec codes the filled
+        # data; the mask sections are appended here.
+        if config.residual_mode == cfg.RESIDUAL_LOSSLESS:
+            return native.native_encode(data, config)
+        data, masks = _mask_fill_check(data, config.allow_nan)
+        return _append_mask_sections([native.native_encode(data, config)],
+                                     masks, config.zstd_level)[0]
     if config.residual_mode == cfg.RESIDUAL_LOSSLESS:
         return _lossless_encode_frames(data, config)[0]
     x, internal, masks, backend, dev = _prepare_input(data, config, opts,
@@ -1116,6 +1171,83 @@ def _parse_streams(streams):
     if all(m is None for m in mask_payloads):
         mask_payloads = None
     return headers, payloads, temporal_parts, mask_payloads
+
+
+def _layer_values(raws, which: int, plane_bytes: int):
+    """Planes -> signed kept-values of layer ``which`` across a batch of
+    ``raws`` entries ((base, res) of (raw, kept, pb) each), the numpy twin
+    of the native unpacker (``EBCC_NO_NATIVE_UNPACK=1``): bottom-aligned
+    plane stack (a partial last row zero-filled), one unpackbits +
+    shift-accumulate per plane row, one masked sign apply.  (entries,
+    plane_bytes * 8) int32, or None when the layer is empty."""
+    ne = len(raws)
+    kmax = max((r[which][1] for r in raws), default=0)
+    if kmax == 0:
+        return None
+    planes = np.zeros((ne, kmax, plane_bytes), np.uint8)
+    signs = np.zeros((ne, plane_bytes), np.uint8)
+    for i, r in enumerate(raws):
+        raw, kept, pb = r[which]
+        if raw is None:
+            continue
+        pl = np.frombuffer(raw, np.uint8)
+        off = kmax - kept
+        full = kept - 1
+        planes[i, off:off + full] = pl[:full * plane_bytes].reshape(
+            full, plane_bytes)
+        planes[i, off + full, :pb] = pl[full * plane_bytes:
+                                        full * plane_bytes + pb]
+        signs[i] = pl[full * plane_bytes + pb:]
+    mag = np.zeros((ne, plane_bytes * 8), np.int32)
+    for k in range(kmax):
+        mag = (mag << 1) | np.unpackbits(planes[:, k], axis=-1)
+    sb = np.unpackbits(signs, axis=-1).astype(bool)
+    return np.where(sb, -mag, mag)
+
+
+def _unpack_planes(raws, shape):
+    """Every (layer, entry) plane payload of a batch -> the sorted global
+    (int64 index, int32 value) pairs over the (layer, entry, *shape)
+    space.  The native unpacker (``native.planes_to_sparse``) runs once per
+    (layer, entry) on a pool of at most 4 threads (ctypes releases the
+    GIL), in (layer, entry) order so the global index stays sorted
+    (reference codec.py:1802-1830); ``EBCC_NO_NATIVE_UNPACK=1`` selects
+    the numpy twin :func:`_layer_values`, which gives the same pairs."""
+    ne = len(raws)
+    d0, hp, wp = shape
+    sc = d0 * hp * wp
+    parts_idx, parts_val = [], []
+    if os.environ.get("EBCC_NO_NATIVE_UNPACK"):
+        for layer in (0, 1):
+            v = _layer_values(raws, layer, sc // 8)
+            if v is None:
+                continue
+            flat = v.reshape(-1)
+            pos = np.flatnonzero(flat)
+            parts_idx.append(pos.astype(np.int64) + layer * ne * sc)
+            parts_val.append(flat[pos])
+    else:
+        def one(task):
+            layer, j = task
+            raw, kept, pb = raws[j][layer]
+            if raw is None:
+                return None
+            pos, vv = native.planes_to_sparse(raw, kept, pb, d0, hp, wp)
+            return pos.astype(np.int64) + (layer * ne + j) * sc, vv
+
+        tasks = [(layer, j) for layer in (0, 1) for j in range(ne)]
+        if ne <= 1:
+            results = [one(t) for t in tasks]
+        else:
+            with ThreadPoolExecutor(max_workers=min(4, 2 * ne)) as pool:
+                results = list(pool.map(one, tasks))
+        for r in results:
+            if r is not None and r[0].size:
+                parts_idx.append(r[0])
+                parts_val.append(r[1])
+    idx = np.concatenate(parts_idx) if parts_idx else np.zeros(0, np.int64)
+    vals = np.concatenate(parts_val) if idx.size else np.zeros(0, np.int32)
+    return idx, vals
 
 
 def _decode_streams_device(streams: List[bytes], device):
@@ -1200,6 +1332,7 @@ def _decode_streams_device(streams: List[bytes], device):
         kept = num_planes - cut - top
         if kept <= 0 or not payload:
             return None, 0, 0
+        levels = hd.base_levels if which == "base" else hd.res_levels
         max_size = (kept + 1) * plane_bytes
         if which == "base" and hd.flags & stream.FLAG_BASE_PARTIAL:
             if backend in (entropy.BACKEND_NATIVE_CAB,
@@ -1214,10 +1347,11 @@ def _decode_streams_device(streams: List[bytes], device):
                     f"partial payload size {len(raw)} outside "
                     f"[{kept * plane_bytes}, {max_size}]")
             return raw, kept, pb
-        return _decompress_full(payload, backend, kept, max_size)
+        return _decompress_full(payload, backend, kept, max_size, levels)
 
-    def _decompress_full(payload, backend, kept, max_size):
-        raw = entropy.decompress(payload, backend, max_size)
+    def _decompress_full(payload, backend, kept, max_size, levels):
+        raw = entropy.decompress(payload, backend, max_size,
+                                 meta=(kept, ent_d0, hp, wp, levels))
         if len(raw) != max_size:
             raise stream.StreamError(
                 f"decompressed payload size {len(raw)} != expected "
@@ -1231,7 +1365,7 @@ def _decode_streams_device(streams: List[bytes], device):
         if kept <= 0 or not payload:
             return None, 0, 0
         return _decompress_full(payload, rec.entropy, kept,
-                                (kept + 1) * plane_bytes)
+                                (kept + 1) * plane_bytes, h0.res_levels)
 
     def _decompress_one(j):
         i, t = divmod(j, t_frames)
@@ -1255,48 +1389,8 @@ def _decode_streams_device(streams: List[bytes], device):
             with ThreadPoolExecutor(max_workers=min(4, ne)) as pool:
                 raws = list(pool.map(_decompress_one, range(ne)))
 
-    def _layer_values(which: int):
-        """Planes -> signed kept-values of one layer across the batch:
-        bottom-aligned plane stack (a partial last row zero-filled), one
-        unpackbits + shift-accumulate per plane row, one masked sign
-        apply.  (ne, sc) int32, or None."""
-        kmax = max((r[which][1] for r in raws), default=0)
-        if kmax == 0:
-            return None
-        planes = np.zeros((ne, kmax, plane_bytes), np.uint8)
-        signs = np.zeros((ne, plane_bytes), np.uint8)
-        for i, r in enumerate(raws):
-            raw, kept, pb = r[which]
-            if raw is None:
-                continue
-            pl = np.frombuffer(raw, np.uint8)
-            off = kmax - kept
-            full = kept - 1
-            planes[i, off:off + full] = pl[:full * plane_bytes].reshape(
-                full, plane_bytes)
-            planes[i, off + full, :pb] = pl[full * plane_bytes:
-                                            full * plane_bytes + pb]
-            signs[i] = pl[full * plane_bytes + pb:]
-        mag = np.zeros((ne, plane_bytes * 8), np.int32)
-        for k in range(kmax):
-            mag = (mag << 1) | np.unpackbits(planes[:, k], axis=-1)
-        sb = np.unpackbits(signs, axis=-1).astype(bool)
-        return np.where(sb, -mag, mag)
-
     with stage("dec: unpack planes"):
-        parts_idx, parts_val = [], []
-        for layer in (0, 1):
-            v = _layer_values(layer)
-            if v is None:
-                continue
-            flat = v.reshape(-1)
-            pos = np.flatnonzero(flat)
-            parts_idx.append(pos.astype(np.int64) + layer * ne * sc)
-            parts_val.append(flat[pos])
-        idx = (np.concatenate(parts_idx) if parts_idx
-               else np.zeros(0, np.int64))
-        vals = (np.concatenate(parts_val) if idx.size
-                else np.zeros(0, np.int32))
+        idx, vals = _unpack_planes(raws, (ent_d0, hp, wp))
 
     with stage("dec: upload sparse + decode"):
         as16 = bool(np.abs(vals).max() < (1 << 15)) if vals.size else True
@@ -1347,12 +1441,15 @@ def decode(buf: bytes, device="cuda") -> np.ndarray:
     (the CUDA card unless ``device="cpu"``).  An ETPK container goes to
     :func:`decode_chunked`, as in the reference."""
     dev = resolve_device(device)
-    _check_routing("decode")
     if buf[:4] == stream.MAGIC_CHUNKED:
         return decode_chunked(buf, device=dev)
     if buf[:4] in (b"EBCC", b"EBCK"):
         raise _not_ported("reference-format (EBCC/EBCK) streams",
                           "5, surfaces")
+    if _native_routed("decode"):
+        header, _, _ = stream.split_frame_stream(buf)
+        return native.native_decode(buf).reshape(
+            header.n_frames, header.height, header.width)
     return _decode_streams([buf], dev)[0]
 
 
@@ -1534,6 +1631,29 @@ def _encode_chunk_set(chunks: np.ndarray, chunk_cfg: CodecConfig,
     return encode_frames_device(chunks, chunk_cfg, opts, max_batch, device)
 
 
+def _host_pool_map(fn, items) -> list:
+    """``fn`` over ``items`` on a pool of one thread per core (at most one
+    per item); the host codec releases the GIL."""
+    workers = max(1, min(os.cpu_count() or 1, len(items)))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(fn, items))
+
+
+def _native_encode_chunks(chunks: np.ndarray, config: CodecConfig,
+                          chunk_dims) -> List[bytes]:
+    """Every chunk through the host codec, one stream each (reference
+    codec.py:2340-2370): NaNs filled first and mask sections appended to
+    the streams, except in lossless mode, which codes every bit."""
+    chunk_cfg = config.per_chunk(chunk_dims)
+    masks = None
+    if config.residual_mode != cfg.RESIDUAL_LOSSLESS:
+        chunks, masks = _mask_fill_check(chunks, config.allow_nan)
+    with stage("enc: native"):
+        streams = _host_pool_map(
+            lambda c: native.native_encode(c, chunk_cfg), list(chunks))
+    return _append_mask_sections(streams, masks, config.zstd_level)
+
+
 def encode_chunked(data: np.ndarray, config: CodecConfig,
                    opts: Optional[EncodeOptions] = None,
                    max_batch: int = DEFAULT_MAX_BATCH,
@@ -1544,7 +1664,7 @@ def encode_chunked(data: np.ndarray, config: CodecConfig,
     as its own stream, ``max_batch`` chunks per device batch (uploaded one
     batch at a time).  The bytes do not depend on ``max_batch``."""
     dev = resolve_device(device)
-    _check_routing("encode")
+    routed = _native_routed("encode")
     set_level_from_env()
     opts = opts or EncodeOptions.from_env()
     data = np.asarray(data, dtype=np.float32).reshape(config.dims)
@@ -1561,8 +1681,11 @@ def encode_chunked(data: np.ndarray, config: CodecConfig,
     with stage("chunked: gather"):
         chunks = _gather_chunks(data, chunk_dims, counts).reshape(
             num_chunks, *_layout(chunk_dims))
-    streams = _encode_chunk_set(chunks, config.per_chunk(chunk_dims), opts,
-                                max_batch, dev)
+    if routed:
+        streams = _native_encode_chunks(chunks, config, chunk_dims)
+    else:
+        streams = _encode_chunk_set(chunks, config.per_chunk(chunk_dims),
+                                    opts, max_batch, dev)
     header = stream.ChunkedHeader(
         dims=tuple(config.dims), chunk_dims=chunk_dims,
         num_chunks=num_chunks, chunk_size=chunk_size)
@@ -1634,9 +1757,12 @@ def decode_chunked(buf: bytes, max_batch: int = DEFAULT_MAX_BATCH,
     dev = resolve_device(device)
     if buf[:4] != stream.MAGIC_CHUNKED:
         return decode(buf, device=dev)
-    _check_routing("decode")
+    routed = _native_routed("decode")
     header, chunk_streams = stream.iter_chunked(buf)
     counts = _container_grid(header)
+    if routed:
+        return _native_decode_chunks(header, chunk_streams, counts,
+                                     header.dims)
     return _decode_chunk_subset(header, chunk_streams, counts, header.dims,
                                 _decode_max_batch(header, max_batch), dev)
 
@@ -1674,7 +1800,7 @@ def decode_chunked_region(buf: bytes, region,
     dev = resolve_device(device)
     if buf[:4] != stream.MAGIC_CHUNKED:
         raise stream.StreamError("region decode needs an ETPK container")
-    _check_routing("decode")
+    routed = _native_routed("decode")
     header, chunk_streams = stream.iter_chunked(buf)
     counts = _container_grid(header)
     bounds = _region_bounds(region, header.dims)
@@ -1687,12 +1813,26 @@ def decode_chunked_region(buf: bytes, region,
     # the covered block is clamped to the dims.
     block_dims = tuple(min(o + len(r) * c, d) - o for o, r, c, d in zip(
         origin, crange, header.chunk_dims, header.dims))
-    block = _decode_chunk_subset(
-        header, [chunk_streams[i] for i in ids],
-        tuple(len(r) for r in crange), block_dims,
-        _decode_max_batch(header, max_batch), dev)
+    sub = [chunk_streams[i] for i in ids]
+    sub_counts = tuple(len(r) for r in crange)
+    if routed:
+        block = _native_decode_chunks(header, sub, sub_counts, block_dims)
+    else:
+        block = _decode_chunk_subset(header, sub, sub_counts, block_dims,
+                                     _decode_max_batch(header, max_batch),
+                                     dev)
     sl = tuple(slice(lo - o, hi - o) for (lo, hi), o in zip(bounds, origin))
     return np.ascontiguousarray(block[sl])
+
+
+def _native_decode_chunks(header, chunk_streams, counts,
+                          out_dims) -> np.ndarray:
+    """:func:`_decode_chunk_subset` through the host codec, one stream per
+    thread (reference codec.py:2451-2462, :2519-2530)."""
+    with stage("dec: native"):
+        parts = _host_pool_map(native.native_decode, chunk_streams)
+    chunks = np.stack(parts).reshape(len(chunk_streams), *header.chunk_dims)
+    return _scatter_chunks(chunks, out_dims, header.chunk_dims, counts)
 
 
 def _decode_chunk_subset(header, chunk_streams, counts, out_dims, max_batch,

@@ -1,14 +1,14 @@
 """Host-side lossless entropy backends for packed bitplane payloads.
 
-The PyTorch port's copy of ``ebcc_tpu/core/entropy.py``, restricted to the
-STORE and ZSTD backends.  The backend ids are part of the stream format and
-keep the JAX package's values.  The CAB coders (ids 2 and 4) are C++ under
-``ebcc_tpu/native/``; the port has no copy of them yet, so selecting or
-decoding them raises ``NotImplementedError`` (ROADMAP Queue 1 item 2).
+The PyTorch port's copy of ``ebcc_tpu/core/entropy.py``.  The backend ids
+are part of the stream format and keep the JAX package's values: STORE,
+ZSTD, the CAB coders (ids 2 and 4, the port's own C++ in
+``csrc/host/cab_coder.cc`` through :mod:`ebcc_tpu_torch.native`), and the
+AUTO pseudo-id, which codes with CAB and with ZSTD and keeps the smaller.
 
 As in the reference: without ``zstandard`` the ZSTD backend stores the
-payload raw, and :func:`backend_id` then resolves to STORE so the stream
-header records what was written.
+payload raw, :func:`default_backend` then resolves to STORE so the stream
+header records what was written, and AUTO compares CAB against STORE.
 """
 
 from __future__ import annotations
@@ -22,21 +22,16 @@ except ImportError:  # pragma: no cover - depends on the installation
 
 BACKEND_STORE = 0
 BACKEND_ZSTD = 1
-BACKEND_NATIVE_CAB = 2
-BACKEND_AUTO = 3         # pseudo-id of the reference (never in streams)
-BACKEND_NATIVE_CAB2 = 4
-
-_CAB_IDS = (BACKEND_NATIVE_CAB, BACKEND_NATIVE_CAB2, BACKEND_AUTO)
-
-
-def _not_ported(backend: int):
-    return NotImplementedError(
-        f"entropy backend {backend} (CAB) is not yet ported to "
-        "ebcc_tpu_torch (ROADMAP Queue 1 item 2: CAB coder)")
+BACKEND_NATIVE_CAB = 2   # context-adaptive binary coder (cab_coder.cc)
+BACKEND_AUTO = 3         # pseudo-id: CAB or ZSTD, the smaller (never in
+                         # streams)
+BACKEND_NATIVE_CAB2 = 4  # CAB's relaxed-eligibility profile
 
 
-def compress(data: bytes, backend: int = BACKEND_ZSTD,
-             level: int = 9) -> bytes:
+def compress(data: bytes, backend: int = BACKEND_ZSTD, level: int = 9,
+             meta=None) -> bytes:
+    """``meta`` = (kept, d0, hp, wp, levels), required by the CAB backends
+    (their context model walks the payload's plane structure)."""
     if backend == BACKEND_STORE or (backend == BACKEND_ZSTD and _zstd is None):
         if backend != BACKEND_STORE and _zstd is None:
             logger.warning("zstandard unavailable; storing uncompressed")
@@ -46,12 +41,16 @@ def compress(data: bytes, backend: int = BACKEND_ZSTD,
         # not silently reconstruct garbage (robust-decoder posture).
         cctx = _zstd.ZstdCompressor(level=level, write_checksum=True)
         return cctx.compress(data)
-    if backend in _CAB_IDS:
-        raise _not_ported(backend)
+    if backend == BACKEND_NATIVE_CAB:
+        from .. import native
+        return native.cab_compress(data, *meta)
+    if backend == BACKEND_NATIVE_CAB2:
+        from .. import native
+        return native.cab2_compress(data, *meta)
     raise ValueError(f"unknown entropy backend {backend}")
 
 
-def decompress(data: bytes, backend: int, orig_size: int) -> bytes:
+def decompress(data: bytes, backend: int, orig_size: int, meta=None) -> bytes:
     if backend == BACKEND_STORE:
         return bytes(data)
     if backend == BACKEND_ZSTD:
@@ -62,8 +61,12 @@ def decompress(data: bytes, backend: int, orig_size: int) -> bytes:
             return dctx.decompress(data, max_output_size=orig_size)
         except _zstd.ZstdError as e:
             raise ValueError(f"corrupt entropy payload: {e}") from e
-    if backend in _CAB_IDS:
-        raise _not_ported(backend)
+    if backend == BACKEND_NATIVE_CAB:
+        from .. import native
+        return native.cab_decompress(data, *meta)
+    if backend == BACKEND_NATIVE_CAB2:
+        from .. import native
+        return native.cab2_decompress(data, *meta)
     raise ValueError(f"unknown entropy backend {backend}")
 
 
@@ -72,10 +75,24 @@ def default_backend() -> int:
 
 
 def backend_id(config) -> int:
-    """Resolve a CodecConfig's entropy backend to its id."""
+    """Resolve a CodecConfig's entropy backend to its (pseudo-)id."""
     name = getattr(config, "entropy_backend", "zstd")
-    if name in ("cab", "cab2", "auto"):
-        raise NotImplementedError(
-            f"entropy_backend={name!r} is not yet ported to ebcc_tpu_torch "
-            "(ROADMAP Queue 1 item 2: CAB coder)")
+    if name == "cab":
+        return BACKEND_NATIVE_CAB
+    if name == "cab2":
+        return BACKEND_NATIVE_CAB2
+    if name == "auto":
+        return BACKEND_AUTO
     return default_backend()
+
+
+def compress_best(data: bytes, backend: int, level: int, meta):
+    """-> (compressed, backend id used).  AUTO codes with CAB and with the
+    default backend (ZSTD, or STORE without ``zstandard``) and keeps the
+    smaller; a tie keeps the default."""
+    if backend != BACKEND_AUTO:
+        return compress(data, backend, level, meta=meta), backend
+    zbk = default_backend()
+    z = compress(data, zbk, level)
+    c = compress(data, BACKEND_NATIVE_CAB, level, meta=meta)
+    return (c, BACKEND_NATIVE_CAB) if len(c) < len(z) else (z, zbk)

@@ -1,0 +1,255 @@
+"""ctypes bindings of the port's host C++ (``ebcc_tpu_torch/csrc/host/``).
+
+The port's counterpart of ``ebcc_tpu/native/__init__.py``, with the same
+names and signatures: the CAB coders (entropy backends 2 and 4), the
+sparse packer and unpacker of the plane payloads, and the whole host codec
+(``native_encode``, ``native_encode_chunked``, ``native_decode``) that
+``EBCC_ENCODE_BACKEND`` / ``EBCC_DECODE_BACKEND`` = ``native`` route to.
+
+Two libraries, built by :mod:`ebcc_tpu_torch.ops._build` at first use:
+``libebcc_host.so`` (the coders, the packer and the unpacker; no
+dependency) and ``libebcc_native_codec.so`` (the host codec; links zstd,
+so only native routing needs it).  A library that cannot be built raises
+``RuntimeError``; nothing falls back.  ctypes releases the GIL around each
+call, so a thread pool runs the unpacker in parallel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import ctypes.util
+
+import numpy as np
+
+from ..ops import _build
+
+_U8P = ctypes.POINTER(ctypes.c_ubyte)
+_I32 = np.ctypeslib.ndpointer(ctypes.c_int32, flags="C_CONTIGUOUS")
+_U8 = np.ctypeslib.ndpointer(ctypes.c_ubyte, flags="C_CONTIGUOUS")
+_F32 = np.ctypeslib.ndpointer(ctypes.c_float, flags="C_CONTIGUOUS")
+_COMPRESS_ARGS = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.POINTER(_U8P)]
+_DECOMPRESS_ARGS = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    _U8, ctypes.c_size_t]
+
+
+class _ConfigStruct(ctypes.Structure):
+    """ctypes mirror of etpu_config_t (csrc/host/etpu_codec.h)."""
+
+    _fields_ = [
+        ("dims", ctypes.c_uint64 * 3),
+        ("base_cr", ctypes.c_float),
+        ("residual_mode", ctypes.c_int32),
+        ("error", ctypes.c_float),
+        ("chunk_dims", ctypes.c_uint64 * 3),
+        ("zstd_level", ctypes.c_int32),
+        ("entropy_backend", ctypes.c_int32),
+        ("temporal", ctypes.c_int32),
+        ("allow_nan", ctypes.c_int32),
+    ]
+
+
+_host_lib = None
+_codec_lib = None
+_libc_free = None
+
+
+def _host():
+    """``libebcc_host.so``, built and bound on first use."""
+    global _host_lib, _libc_free
+    if _host_lib is not None:
+        return _host_lib
+    lib = _build.load_host("ebcc_host")
+    for fn in ("etpu_cab_compress", "etpu_cab2_compress"):
+        getattr(lib, fn).restype = ctypes.c_size_t
+        getattr(lib, fn).argtypes = _COMPRESS_ARGS
+    for fn in ("etpu_cab_decompress", "etpu_cab2_decompress"):
+        getattr(lib, fn).restype = ctypes.c_size_t
+        getattr(lib, fn).argtypes = _DECOMPRESS_ARGS
+    lib.etpu_planes_to_sparse.restype = ctypes.c_size_t
+    lib.etpu_planes_to_sparse.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_size_t,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _I32, _I32]
+    lib.etpu_sparse_to_planes.restype = ctypes.c_int
+    lib.etpu_sparse_to_planes.argtypes = [
+        _I32, _I32, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8]
+    # The coders return buffers from malloc; this library has no etpu_free.
+    libc = ctypes.CDLL(ctypes.util.find_library("c"))
+    libc.free.argtypes = [ctypes.c_void_p]
+    libc.free.restype = None
+    _libc_free = libc.free
+    _host_lib = lib
+    return lib
+
+
+def load_codec():
+    """``libebcc_native_codec.so``, built and bound on first use."""
+    global _codec_lib
+    if _codec_lib is not None:
+        return _codec_lib
+    try:
+        lib = _build.load_host("ebcc_native_codec")
+    except RuntimeError as e:
+        raise RuntimeError(
+            "native routing needs libebcc_native_codec.so, which links zstd "
+            "(zstd.h and libzstd); it could not be built: " + str(e)) from e
+    lib.etpu_decode.restype = ctypes.c_size_t
+    lib.etpu_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_float))]
+    lib.etpu_encode.restype = ctypes.c_size_t
+    lib.etpu_encode.argtypes = [_F32, ctypes.POINTER(_ConfigStruct),
+                                ctypes.POINTER(_U8P)]
+    lib.etpu_encode_chunked.restype = ctypes.c_size_t
+    lib.etpu_encode_chunked.argtypes = lib.etpu_encode.argtypes
+    lib.etpu_free.argtypes = [ctypes.c_void_p]
+    lib.etpu_free.restype = None
+    _codec_lib = lib
+    return lib
+
+
+def _take(out, n: int, free) -> bytes:
+    """Copy ``n`` bytes of a C-allocated buffer, then free it."""
+    try:
+        return bytes(ctypes.cast(out, ctypes.POINTER(ctypes.c_ubyte * n))
+                     .contents)
+    finally:
+        free(out)
+
+
+def _make_config(config) -> _ConfigStruct:
+    c = _ConfigStruct()
+    for i in range(3):
+        c.dims[i] = config.dims[i]
+        c.chunk_dims[i] = config.chunk_dims[i]
+    c.base_cr = config.base_cr
+    c.residual_mode = config.residual_mode
+    c.error = config.error
+    c.zstd_level = config.zstd_level
+    c.entropy_backend = {"zstd": 1, "cab": 2, "auto": 3, "cab2": 4}.get(
+        getattr(config, "entropy_backend", "zstd"), 1)
+    c.temporal = 1 if getattr(config, "temporal", False) else 0
+    c.allow_nan = 1 if getattr(config, "allow_nan", False) else 0
+    return c
+
+
+def _encode_with(fn, data: np.ndarray, config, what: str) -> bytes:
+    lib = load_codec()
+    data = np.ascontiguousarray(data, dtype=np.float32).ravel()
+    cfg = _make_config(config)
+    out = _U8P()
+    n = getattr(lib, fn)(data, ctypes.byref(cfg), ctypes.byref(out))
+    if n == 0:
+        raise RuntimeError(f"native {what} failed")
+    return _take(out, n, lib.etpu_free)
+
+
+def native_encode(data: np.ndarray, config) -> bytes:
+    """Encode through the host codec (single chunk) -> ETPU stream."""
+    return _encode_with("etpu_encode", data, config, "encode")
+
+
+def native_encode_chunked(data: np.ndarray, config) -> bytes:
+    """Chunked encode through the host codec -> ETPK container."""
+    return _encode_with("etpu_encode_chunked", data, config, "chunked encode")
+
+
+def native_decode(blob: bytes) -> np.ndarray:
+    """Decode an ETPU stream or ETPK container through the host codec ->
+    flat float32 values."""
+    lib = load_codec()
+    out = ctypes.POINTER(ctypes.c_float)()
+    n = lib.etpu_decode(blob, len(blob), ctypes.byref(out))
+    if n == 0:
+        raise RuntimeError("native decode failed")
+    try:
+        return np.ctypeslib.as_array(out, shape=(n,)).copy()
+    finally:
+        lib.etpu_free(out)
+
+
+def _cab_compress(fn: str, payload: bytes, kept, d0, hp, wp,
+                  levels) -> bytes:
+    lib = _host()
+    out = _U8P()
+    n = getattr(lib, fn)(payload, len(payload), kept, d0, hp, wp, levels,
+                         ctypes.byref(out))
+    if n == 0:
+        raise RuntimeError(f"{fn} failed")
+    return _take(out, n, _libc_free)
+
+
+def _cab_decompress(fn: str, comp: bytes, kept, d0, hp, wp,
+                    levels) -> bytes:
+    lib = _host()
+    size = (kept + 1) * d0 * hp * (wp // 8)
+    buf = np.zeros(size, np.uint8)
+    if getattr(lib, fn)(comp, len(comp), kept, d0, hp, wp, levels, buf,
+                        size) != size:
+        raise ValueError(f"corrupt {'CAB2' if 'cab2' in fn else 'CAB'} "
+                         "payload")
+    return buf.tobytes()
+
+
+def cab_compress(payload: bytes, kept: int, d0: int, hp: int, wp: int,
+                 levels: int) -> bytes:
+    """Context-adaptive arithmetic compression of a raw layer payload
+    (entropy backend 2; csrc/host/cab_coder.cc)."""
+    return _cab_compress("etpu_cab_compress", payload, kept, d0, hp, wp,
+                         levels)
+
+
+def cab_decompress(comp: bytes, kept: int, d0: int, hp: int, wp: int,
+                   levels: int) -> bytes:
+    return _cab_decompress("etpu_cab_decompress", comp, kept, d0, hp, wp,
+                           levels)
+
+
+def cab2_compress(payload: bytes, kept: int, d0: int, hp: int, wp: int,
+                  levels: int) -> bytes:
+    """The relaxed-eligibility CAB profile (entropy backend 4): fewer coder
+    calls than backend 2 for a slightly larger stream."""
+    return _cab_compress("etpu_cab2_compress", payload, kept, d0, hp, wp,
+                         levels)
+
+
+def cab2_decompress(comp: bytes, kept: int, d0: int, hp: int, wp: int,
+                    levels: int) -> bytes:
+    return _cab_decompress("etpu_cab2_decompress", comp, kept, d0, hp, wp,
+                           levels)
+
+
+def planes_to_sparse(raw: bytes, kept: int, pb: int, d0: int, hp: int,
+                     wp: int):
+    """Dense plane payload (``kept - 1`` full rows, a last row of ``pb``
+    bytes, the sign row) -> (int32 positions, signed int32 magnitudes at
+    the cut), positions ascending; byte columns zero in every kept row are
+    skipped (csrc/host/sparse_unpack.cc)."""
+    lib = _host()
+    n = d0 * hp * wp
+    idx = np.empty(n, np.int32)
+    vals = np.empty(n, np.int32)
+    k = lib.etpu_planes_to_sparse(raw, len(raw), kept, pb, d0, hp, wp,
+                                  idx, vals)
+    if k == ctypes.c_size_t(-1).value:
+        raise ValueError("malformed plane payload")
+    return idx[:k], vals[:k]
+
+
+def sparse_to_planes(pos: np.ndarray, vals: np.ndarray, shift: int,
+                     msb: int, d0: int, hp: int, wp: int) -> bytes:
+    """(positions, signed values at the stored cut) -> the dense plane
+    payload at ``stored cut + shift``: ``msb`` magnitude rows MSB first,
+    then the sign row of the coefficients still significant; the inverse
+    of :func:`planes_to_sparse`."""
+    lib = _host()
+    pos = np.ascontiguousarray(pos, dtype=np.int32)
+    vals = np.ascontiguousarray(vals, dtype=np.int32)
+    payload = np.empty((msb + 1) * (d0 * hp * (wp // 8)), np.uint8)
+    if lib.etpu_sparse_to_planes(pos, vals, pos.size, shift, msb, d0, hp, wp,
+                                 payload) != 0:
+        raise ValueError("sparse_to_planes: bad geometry")
+    return payload.tobytes()

@@ -388,15 +388,25 @@ def test_default_device_is_the_card(containers, monkeypatch, call):
             et.decode_chunked_region(s_port, REGIONS["interior"])
 
 
-def test_native_routing_still_raises(containers, monkeypatch):
-    x, _, s_port = containers["max_error"]
-    _, cfg, _, opts = configs("max_error")
+def test_native_routing(containers, monkeypatch):
+    """``EBCC_{ENCODE,DECODE}_BACKEND=native`` route the container paths
+    through the port's copy of the host codec: ``encode_chunked`` writes
+    the JAX package's routed container byte for byte, and
+    ``decode_chunked`` and the region decode give the JAX package's
+    native decode (a region equal to its crop), within the bound."""
+    x, _, _ = containers["max_error"]
+    ref, cfg, ropts, opts = configs("max_error")
     monkeypatch.setenv("EBCC_ENCODE_BACKEND", "native")
+    blob = et.encode_chunked(x, cfg, opts, device="cpu")
+    assert blob == ebcc_tpu.encode_chunked(x, ref, ropts)
     monkeypatch.setenv("EBCC_DECODE_BACKEND", "native")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        et.encode_chunked(x, cfg, opts, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        et.decode_chunked(s_port, device="cpu")
+    full = et.decode_chunked(blob, device="cpu")
+    np.testing.assert_array_equal(full, ebcc_tpu.decode_chunked(blob))
+    assert_bound("max_error", x, full)
+    region = REGIONS["interior"]
+    np.testing.assert_array_equal(
+        et.decode_chunked_region(blob, region, device="cpu"),
+        full[tuple(slice(*r) for r in region)])
 
 
 def _compat_config(monkeypatch, data, mode, **change):

@@ -160,38 +160,89 @@ def test_truncated_stream_raises(streams):
             et.decode(bad, device="cpu")
 
 
+@pytest.mark.parametrize("change", [dict(u16_upload=True)],
+                         ids=["u16_upload"])
+def test_modes_not_ported_raise(change):
+    """What the port still lacks of the encode options, the u16 upload,
+    raises naming its ROADMAP item."""
+    x = np.ones((2, 64, 64), np.float32)
+    _, cfg = _configs(x.shape)
+    opts = et.EncodeOptions(**change)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+        et.encode(x, cfg, opts, device="cpu")
+
+
 @pytest.mark.parametrize("change", [
     dict(temporal=True, entropy_backend="cab"),
     dict(residual_mode=ebcc_tpu.RESIDUAL_NONE, entropy_backend="cab"),
     dict(residual_mode=ebcc_tpu.RESIDUAL_LOSSLESS, native_routing=True),
-    dict(u16_upload=True),
     dict(entropy_backend="cab"),
-], ids=["temporal", "rate", "lossless", "u16_upload", "cab"])
-def test_modes_not_ported_raise(monkeypatch, change):
-    """Every mode is ported; what each still lacks raises, naming its
-    ROADMAP item: the CAB coder (in temporal, rate and intra mode), native
-    routing (of a lossless encode) and the u16 upload."""
-    x = np.ones((2, 64, 64), np.float32)
-    _, cfg = _configs(x.shape)
+], ids=["temporal", "rate", "lossless", "cab"])
+def test_cab_and_native_routing_in_every_mode(monkeypatch, streams,
+                                              change):
+    """The CAB coder in temporal, rate and intra mode, and native routing
+    of a lossless encode, on the fixture's three frames: the port's stream
+    decodes through both packages within the mode's bound (bit-exact for
+    lossless).  Against the JAX package's stream of the same config (the
+    temporal one is held against it in ``test_torch_native.py``), the size
+    is within 1% and the flags, cut and entropy byte are equal; the routed
+    lossless stream is the JAX package's native encoder's, byte for byte."""
+    x = streams["three96x128"][0]
+    ref, cfg = _configs(x.shape)
     change = dict(change)
-    opts = et.EncodeOptions(u16_upload=change.pop("u16_upload", False))
-    if change.pop("native_routing", False):
+    routed = change.pop("native_routing", False)
+    ref = dataclasses.replace(ref, **change)
+    cfg = dataclasses.replace(cfg, **change)
+    if routed:
         monkeypatch.setenv("EBCC_ENCODE_BACKEND", "native")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        et.encode(x, dataclasses.replace(cfg, **change), opts, device="cpu")
+    s_port = et.encode(x, cfg, device="cpu")
+    hd = tstream.split_frame_stream(s_port)[0]
+    if routed:
+        from ebcc_tpu import native as jnative
+        assert s_port == jnative.native_encode(x[None], ref)
+    else:
+        # A rate-mode partial-plane payload is zstd-coded, as in the
+        # reference; the header then says so.
+        partial = bool(hd.flags & tstream.FLAG_BASE_PARTIAL)
+        assert hd.entropy == (1 if partial else 2)
+        assert hd.temporal == cfg.temporal
+    if not (routed or cfg.temporal):
+        s_jax = ebcc_tpu.encode(x, ref)
+        hj = tstream.split_frame_stream(s_jax)[0]
+        assert (hd.flags, hd.entropy, hd.base_cut) == (hj.flags, hj.entropy,
+                                                      hj.base_cut)
+        assert abs(len(s_port) - len(s_jax)) <= 0.01 * len(s_jax)
+    for out in (et.decode(s_port, device="cpu"), ebcc_tpu.decode(s_port)):
+        if cfg.residual_mode == ebcc_tpu.RESIDUAL_LOSSLESS:
+            np.testing.assert_array_equal(out.view(np.int32),
+                                          x.view(np.int32))
+        elif cfg.residual_mode == ebcc_tpu.RESIDUAL_NONE:
+            assert len(s_port) <= x.nbytes / cfg.base_cr
+            assert np.isfinite(out).all()
+        else:
+            assert np.abs(out - x).max() <= ERROR
 
 
 @pytest.mark.parametrize("kind", ["ENCODE", "DECODE"])
-def test_native_routing_raises(monkeypatch, kind):
-    x = np.ones((1, 64, 64), np.float32)
-    _, cfg = _configs(x.shape)
+def test_native_routing(monkeypatch, kind):
+    """``EBCC_{ENCODE,DECODE}_BACKEND=native`` routes ``encode`` and
+    ``decode`` through the port's copy of the host codec: the routed
+    encode writes the JAX package's native encoder's bytes, the routed
+    decode gives its native decoder's values, within the bound."""
+    from ebcc_tpu import native as jnative
+    x = _smooth_frames(n=1)
+    ref, cfg = _configs(x.shape)
     blob = et.encode(x, cfg, device="cpu")
     monkeypatch.setenv(f"EBCC_{kind}_BACKEND", "native")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if kind == "ENCODE":
-            et.encode(x, cfg, device="cpu")
-        else:
-            et.decode(blob, device="cpu")
+    if kind == "ENCODE":
+        routed = et.encode(x, cfg, device="cpu")
+        assert routed == jnative.native_encode(x, ref)
+        assert np.abs(et.decode(routed, device="cpu") - x).max() <= ERROR
+    else:
+        out = et.decode(blob, device="cpu")
+        np.testing.assert_array_equal(out.reshape(-1),
+                                      jnative.native_decode(blob))
+        assert out.shape == x.shape and np.abs(out - x).max() <= ERROR
 
 
 @pytest.mark.parametrize("magic", [b"EBCC", b"EBCK"])

@@ -157,12 +157,19 @@ def test_port_imports_neither_jax_nor_ebcc_tpu():
     sources = sorted(PORT_ROOT.rglob("*.py")) + [
         PORT_ROOT.parent / "chip_smoke.py"]
     assert len(sources) > 10
+    assert PORT_ROOT / "native" / "__init__.py" in sources
     bad = []
     for path in sources:
         for mod in _imports(path):
             top = mod.split(".")[0]
             if top in ("jax", "jaxlib") or top == "ebcc_tpu":
                 bad.append(f"{path.name}: {mod}")
+        # The port builds and loads its own host libraries, never the JAX
+        # package's plugin or build directory.
+        text = path.read_text()
+        for name in ("libh5z_etpu", "native/build"):
+            if name in text:
+                bad.append(f"{path.name}: {name}")
     assert not bad, bad
 
 
