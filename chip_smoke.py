@@ -17,9 +17,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    float variant ``dwt2d_transform`` at 3 levels, K2 ``idwt2d_dequant`` at 5
    and 3 levels with random per-chunk cuts; median times of each kernel and
    its plain version (CUDA events around one call, the wrapper's host work
-   included), and from ``torch.profiler`` the CUDA kernels one call
-   launches (a 5-level K2 call may launch at most 4, a 3-level one 3) and
-   the device span of a call.  Then the same checks at the edge shapes
+   included); the kernels one call launches, from the kernels' library's
+   own count (a 5-level K2 call may launch at most 4, a 3-level one 3); and
+   from ``torch.profiler`` the CUDA kernels and the device span of a call
+   (printed, "not measured" when three sessions give no whole calls).  Then the same checks at the edge shapes
    (2, 1, 96, 160), (1, 2, 224, 416), (1, 1, 32, 64) (levels shrink to 1-2
    samples), (4, 1, 1824, 3616) (a 1801x3600 grid, padded; timed too) and
    (2, 1, 1024, 1024) (the compat tiles of phase 11; timed too).
@@ -34,9 +35,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 4. K3 ``curve_stats`` against its plain version at (4, 1, 736, 1440): the
    base call (5 levels, cuts 21, 18, ..., 0) and a residual call (3 levels,
    cuts 12, 9, ..., 0); max, min and count equal, the float64 sum within
-   its stated tolerance; median times, device spans, and the CUDA kernels
-   of one call with each one's device time (a base call may launch at most
-   5, a residual call 4).  A 22-cut grid (every base plane, three groups of
+   its stated tolerance; median times, device spans, the kernels one call
+   launches by the library's count (a base call may launch at most 5, a
+   residual call 4), and the CUDA kernels of one call with each one's
+   device time.  A 22-cut grid (every base plane, three groups of
    cuts) against the plain version, and an unordered grid with a repeated
    cut whose every row must equal a one-cut call's.  Then the base and
    residual calls at the edge shapes of phase 2, with a valid region short
@@ -103,6 +105,25 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     where the host codec builds, 4 frames encoded through it and decoded
     on the card, (b)'s streams and phase 11a's container decoded through
     it, all within 0.5; where it does not, a routed call must raise.
+13. Scale-out and the user surfaces: (a) the 32 frames of phase 3 through
+    ``encode_chunked_sharded`` over ``make_mesh()`` (every visible card;
+    ``torch.cuda.device_count()`` printed) in one-frame chunks,
+    ``max_batch=4``: the container byte-identical to phase 11a's,
+    ``decode_chunked_sharded`` bit-equal to ``decode_chunked``, K1 and K2
+    launched, ``global_range`` equal to numpy's, wall times beside
+    ``encode_chunked``'s, and ``dryrun_multidevice(1)``; (b) two processes
+    (this script with ``--worker encode``) in a gloo group through
+    ``multihost.initialize``, each coding its 16 chunks on ``cuda:0``: the
+    merged container byte-identical to phase 11a's, each rank's cross-rank
+    ``global_range`` right and its K1/K2 launched, the 2-rank wall beside
+    one process's encode of all 32; (c) one NCCL rank (``--worker nccl``):
+    ``all_reduce`` MIN and MAX of a CUDA tensor, ``global_range`` through
+    the group; (d) ``python -m ebcc_tpu_torch.api.cli`` as processes:
+    ``spec`` prints the JAX package's string, ``compress`` of 4 frames,
+    ``decompress`` within 0.5, ``decompress --region`` equal to the crop;
+    (e) ``utils.profiling.trace`` around a 4-frame roundtrip writes a
+    Chrome trace that names K2's kernels and the trace's annotation.  A
+    failing process fails the phase.
 
 Phases 3, 5, 7, 8, 9 and 12 print the total stream bytes or the budget use of
 their roundtrips, and phases 3, 8 and 9 the launches of each kernel in the
@@ -119,6 +140,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -325,28 +347,44 @@ def frame_ops(name, hp, wp):
     return lifting_ops(hp, wp, levels) + extra * hp * wp
 
 
-def device_profile(torch, fn, calls=5):
+def device_profile(torch, fn, calls=5, sessions=3):
     """(CUDA kernels one call of fn launches, median device span of a call
     in ms: its first kernel's start to its last kernel's end), from one
     torch.profiler session over calls + 1 calls in a row, the first left
-    out; (None, None) when it records no device activity."""
+    out; a session whose device events do not split into calls + 1 equal
+    calls is printed and taken again, up to ``sessions`` in all; (None,
+    None) when none does."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls + 1):
-            fn()
-        torch.cuda.synchronize()
-    ev = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.name.startswith(("Memcpy", "Memset")))
-    if not ev or len(ev) % (calls + 1):
-        return None, None
-    per = len(ev) // (calls + 1)
-    spans = [(ev[k + per - 1][1] - ev[k][0]) / 1e3
-             for k in range(per, len(ev), per)]
-    return per, statistics.median(spans)
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls + 1):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith(("Memcpy", "Memset")))
+        if ev and not len(ev) % (calls + 1):
+            per = len(ev) // (calls + 1)
+            spans = [(ev[k + per - 1][1] - ev[k][0]) / 1e3
+                     for k in range(per, len(ev), per)]
+            return per, statistics.median(spans)
+        print(f"  device profile: {len(ev)} device events over "
+              f"{calls + 1} calls: {sorted({n[:60] for _, _, n in ev})}")
+    return None, None
+
+
+def kernels_launched(torch, dh, fn):
+    """CUDA kernels one call of fn launches, from the kernels' library's
+    own count at its launch sites (no profiler)."""
+    torch.cuda.synchronize()
+    before = dh.cuda_kernels_launched()
+    fn()
+    torch.cuda.synchronize()
+    return dh.cuda_kernels_launched() - before
 
 
 def phase_kernels(torch, dh, frames, tall):
@@ -370,10 +408,11 @@ def phase_kernels(torch, dh, frames, tall):
                        replaces=replaces[name])
             for name, (fn, plain, _) in calls.items()}
     time_rows(rows)
-    profile_rows(torch, rows)
+    profile_rows(torch, dh, rows)
     for name, most in (("idwt2d_dequant", 4), ("idwt2d_dequant L3", 3)):
-        if (rows[name]["per_call"] or 0) > most:
-            raise AssertionError(f"{name} launched more than {most} kernels")
+        if not 0 < rows[name]["launched"] <= most:
+            raise AssertionError(f"{name}: {rows[name]['launched']} kernels "
+                                 f"launched, 1 to {most} expected")
 
     for shape in EDGE_SHAPES:
         src = tall if shape[2] > 736 or shape[3] > 1440 else frames
@@ -387,15 +426,17 @@ def phase_kernels(torch, dh, frames, tall):
                 for k, (fn, plain, _) in calls_e.items()
                 if k in ("dwt2d_quantize", "idwt2d_dequant")}
             time_rows(tall_rows)
-            profile_rows(torch, tall_rows)
+            profile_rows(torch, dh, tall_rows)
     return rows
 
 
-def profile_rows(torch, rows):
-    """Adds each row's CUDA kernels per call and device span per call."""
+def profile_rows(torch, dh, rows):
+    """Adds each row's kernels launched per call (the library's count), its
+    CUDA kernels per call and its device span per call (the profiler's)."""
     for name, row in rows.items():
+        row["launched"] = kernels_launched(torch, dh, row["fn"])
         row["per_call"], row["device_ms"] = device_profile(torch, row["fn"])
-        print(f"  {name}: "
+        print(f"  {name}: {row['launched']} kernels launched per call; "
               + (f"{row['per_call']} CUDA kernels per call, device span "
                  f"{row['device_ms']:.4f} ms" if row["per_call"]
                  else "device profile not measured"))
@@ -498,15 +539,15 @@ def phase_curve(torch, dh, frames, tall):
             ops=b * n_cuts * per_cut,
             replaces="ebcc_tpu/ops/dwt_pallas.py:253")
     time_rows(rows)
-    profile_rows(torch, rows)
+    profile_rows(torch, dh, rows)
     ktm = kernel_times_module()
     for name, most in (("curve_stats", 5), ("curve_stats L3", 4)):
         row = rows[name]
         print(f"  {name}: kernels of one call (device us): "
               f"{ktm.kernels_of_one_call(torch, row['fn'])}")
-        if row["per_call"] is None or row["per_call"] > most:
-            raise AssertionError(f"{name}: {row['per_call']} kernels per "
-                                 f"call, at most {most} expected")
+        if not 0 < row["launched"] <= most:
+            raise AssertionError(f"{name}: {row['launched']} kernels "
+                                 f"launched per call, 1 to {most} expected")
 
     c = calls["curve_stats"]
     args = (c["q"], c["t"], c["scale"], c["off"], c["target"])
@@ -1397,8 +1438,292 @@ def phase_native_routing(et, frames, cab_streams, blob, codec_error, card):
         raise AssertionError("native container decode over the bound")
 
 
+# ---- phase 13: scale-out and the user surfaces ----
+
+# The JAX package's ``spec`` string for these arguments (the CPU tests hold
+# the two CLIs equal on every case).
+CLI_SPEC_ARGS = ["spec", "-b", "200", "-H", "721", "-W", "1440", "-r",
+                 "0.01"]
+CLI_SPEC_WANT = "33030,721,1440,1128792064,2,1008981770"
+CLI_REGION = ((1, 3), (200, 550), (900, 1300))
+CHILD_TIMEOUT_S = 300
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_children(argvs, timeout=CHILD_TIMEOUT_S):
+    """Start every command at once, wait for all (each within ``timeout``
+    seconds) -> their standard outputs; any non-zero exit or timeout kills
+    the rest and raises with the output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    procs = [subprocess.Popen(a, cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for a, p, out in zip(argvs, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{' '.join(a[1:4])} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def phase_sharded(torch, et, dh, frames, blob, card):
+    """Phase 13a: the 32 frames through ``encode_chunked_sharded`` over
+    ``make_mesh()`` (every visible card), one-frame chunks, ``max_batch=4``:
+    the container byte-identical to phase 11a's, ``decode_chunked_sharded``
+    bit-equal to ``decode_chunked``, K1 and K2 launched, ``global_range``
+    equal to numpy's, wall times beside ``encode_chunked``'s, and
+    ``dryrun_multidevice(1)``."""
+    from ebcc_tpu_torch.parallel import (decode_chunked_sharded,
+                                         dryrun_multidevice,
+                                         encode_chunked_sharded,
+                                         global_range, make_mesh)
+    n = frames.shape[0]
+    config = era5_config(et, n)
+    opts = et.EncodeOptions()
+    mesh = make_mesh()
+    _, t_plain = timed(et.encode_chunked, frames, config, opts, max_batch=4)
+    dh.reset_launch_counts()
+    got, t_sh = timed(encode_chunked_sharded, frames, config, opts, mesh,
+                      max_batch=4)
+    enc_launches = dh.launch_counts()
+    if got != blob:
+        raise AssertionError("sharded container differs from phase 11a's")
+    dh.reset_launch_counts()
+    dec, t_dec = timed(decode_chunked_sharded, blob, mesh, max_batch=4)
+    dec_launches = dh.launch_counts()
+    want, t_dec_plain = timed(et.decode_chunked, blob, max_batch=4)
+    if not np.array_equal(dec, want):
+        raise AssertionError("sharded decode differs from decode_chunked")
+    rng = global_range(frames, mesh)
+    if rng != (float(frames.min()), float(frames.max())):
+        raise AssertionError(f"global_range {rng} against numpy's "
+                             f"{frames.min()}, {frames.max()}")
+    dry = dryrun_multidevice(1)
+    print(f"sharded (a) on {card}: torch.cuda.device_count() "
+          f"{torch.cuda.device_count()}, mesh {mesh.shape} of {mesh.flat}; "
+          f"encode_chunked_sharded {t_sh:.4f} s against encode_chunked "
+          f"{t_plain:.4f} s, container byte-identical to phase 11a's; "
+          f"decode_chunked_sharded {t_dec:.4f} s against decode_chunked "
+          f"{t_dec_plain:.4f} s, bit-equal; global_range {rng}; "
+          f"dryrun_multidevice(1) {dry}")
+    print(f"launches on the sharded path: encode {enc_launches}, decode "
+          f"{dec_launches}")
+    for name, got_n in (("encode K1", enc_launches["dwt2d_quantize"]),
+                        ("encode K2", enc_launches["idwt2d_dequant"]),
+                        ("decode K2", dec_launches["idwt2d_dequant"])):
+        if got_n == 0:
+            raise AssertionError(f"sharded {name} not launched")
+
+
+def phase_two_ranks(et, frames, blob, tmp, card):
+    """Phase 13b: two processes in a gloo group (``multihost.initialize``;
+    NCCL refuses two ranks on one card), each coding its own 16 chunks of
+    the 32 frames on ``cuda:0``: the merged container byte-identical to
+    phase 11a's, the cross-rank ``global_range`` right, each rank's K1/K2
+    launches and wall; the 2-rank wall beside one process's encode of all
+    32."""
+    from ebcc_tpu_torch.parallel import multihost
+    n = frames.shape[0]
+    config = era5_config(et, n)
+    (streams, _), t_one = timed(multihost.encode_owned_chunks, frames, config,
+                           et.EncodeOptions(), process_id=0,
+                           process_count=1, max_batch=4)
+    if multihost.merge_container_parts(
+            config, [multihost.container_part(streams)]) != blob:
+        raise AssertionError("one-process owned encode differs from phase "
+                             "11a's container")
+    np.save(os.path.join(tmp, "frames.npy"), frames)
+    port = free_port()
+    run_children([[sys.executable, os.path.abspath(__file__), "--worker",
+                   "encode", "--rank", str(r), "--world", "2", "--port",
+                   str(port), "--dir", tmp] for r in range(2)])
+    metas = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"meta{r}.json")) as f:
+            metas.append(json.load(f))
+    parts = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"part{r}.bin"), "rb") as f:
+            parts.append(f.read())
+    if multihost.merge_container_parts(config, parts) != blob:
+        raise AssertionError("2-rank merged container differs from phase "
+                             "11a's")
+    want = [float(frames.min()), float(frames.max())]
+    wall = max(m["t1"] for m in metas) - min(m["t0"] for m in metas)
+    for m in metas:
+        print(f"rank {m['rank']} of 2 on {card}: chunks [{m['start']}, "
+              f"{m['stop']}) on {m['device']}, encode {m['wall']:.4f} s, "
+              f"launches {m['launches']}, global_range {m['range']}")
+        if m["range"] != want:
+            raise AssertionError(f"rank {m['rank']} global_range "
+                                 f"{m['range']} against {want}")
+        if min(m["launches"]["dwt2d_quantize"],
+               m["launches"]["idwt2d_dequant"]) == 0:
+            raise AssertionError(f"rank {m['rank']} launched no K1 or K2")
+    print(f"two ranks (b) on {card}: merged container byte-identical to "
+          f"phase 11a's; 2-rank wall {wall:.4f} s against one process's "
+          f"encode of all {n} {t_one:.4f} s")
+
+
+def phase_nccl(tmp, card):
+    """Phase 13c: one NCCL rank (NCCL refuses two on one card) in its own
+    process: ``all_reduce`` MIN and MAX of a CUDA tensor, and
+    ``global_range`` of the 32 frames through the group."""
+    run_children([[sys.executable, os.path.abspath(__file__), "--worker",
+                   "nccl", "--rank", "0", "--world", "1", "--port",
+                   str(free_port()), "--dir", tmp]])
+    with open(os.path.join(tmp, "nccl.json")) as f:
+        meta = json.load(f)
+    print(f"nccl (c) on {card}: backend {meta['backend']}, all_reduce "
+          f"MIN/MAX of a CUDA tensor {meta['reduced']}, global_range "
+          f"{meta['range']}")
+
+
+def phase_cli(frames, tmp, card):
+    """Phase 13d: ``python -m ebcc_tpu_torch.api.cli`` on the card, each
+    command a process: ``spec`` prints the JAX package's string;
+    ``compress`` of 4 frames from a ``.npy`` at --max-error 0.5;
+    ``decompress`` within 0.5; ``decompress --region`` equal to the crop."""
+    cli = [sys.executable, "-m", "ebcc_tpu_torch.api.cli"]
+    spec = run_children([cli + CLI_SPEC_ARGS])[0].strip().splitlines()[-1]
+    if spec != CLI_SPEC_WANT:
+        raise AssertionError(f"cli spec {spec!r}, want {CLI_SPEC_WANT!r}")
+    four = frames[:4]
+    src, blob, full, part = (os.path.join(tmp, f) for f in (
+        "cli_in.npy", "cli.etpk", "cli_full.npy", "cli_region.npy"))
+    np.save(src, four)
+    t0 = time.perf_counter()
+    run_children([cli + ["compress", src, blob, "--max-error", "0.5"]])
+    t1 = time.perf_counter()
+    region = ",".join(f"{a}:{b}" for a, b in CLI_REGION)
+    run_children([cli + ["decompress", blob, full],
+                  cli + ["decompress", blob, part, "--region", region]])
+    t2 = time.perf_counter()
+    out = np.load(full)
+    err = float(np.abs(out - four).max())
+    if out.shape != four.shape or err > 0.5:
+        raise AssertionError(f"cli decompress: shape {out.shape}, max error "
+                             f"{err}")
+    crop = out[tuple(slice(a, b) for a, b in CLI_REGION)]
+    if not np.array_equal(np.load(part), crop):
+        raise AssertionError("cli --region differs from the crop")
+    print(f"cli (d) on {card}: spec {spec}; compress of 4 frames "
+          f"{os.path.getsize(blob)} bytes in {t1 - t0:.2f} s (a process), "
+          f"decompress max error {err:.6f} and --region {region} equal to "
+          f"the crop, both processes in {t2 - t1:.2f} s")
+
+
+def phase_trace(torch, et, frames, tmp, card):
+    """Phase 13e: ``profiling.trace`` around one roundtrip of 4 frames on
+    the card writes a Chrome trace whose events name K2's CUDA kernel and
+    the trace's own annotation."""
+    import glob
+    from ebcc_tpu_torch.utils import profiling
+    name = "ebcc_smoke_trace"
+    x = torch.from_numpy(frames[:4].reshape(4, 1, H, W)).cuda()
+    config = et.CodecConfig(dims=(1, H, W), base_cr=30,
+                            residual_mode=et.RESIDUAL_MAX_ERROR, error=0.5)
+    with profiling.trace(name, profile_dir=tmp):
+        et.roundtrip_frames_device(x, config)
+        torch.cuda.synchronize()
+    files = glob.glob(os.path.join(tmp, f"{name}.*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace files: {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    # CUDA kernel names are demangled signatures, in an anonymous namespace.
+    k2 = sorted({m.group() for n in names
+                 for m in [re.search(r"\binv_(tile|coarse)\b", n)] if m})
+    if name not in names or not k2:
+        raise AssertionError(f"trace lacks the annotation or K2: "
+                             f"{name in names}, {k2}")
+    print(f"trace (e) on {card}: {os.path.getsize(files[0])} bytes, "
+          f"{len(events)} events, annotation {name!r} and K2's kernels "
+          f"{k2}")
+
+
+def rank_worker(args):
+    """One rank of phase 13b or 13c (this script run with ``--worker``)."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ebcc_tpu_torch.parallel import global_range, make_mesh, multihost
+    dist = torch.distributed
+    frames = np.load(os.path.join(args.dir, "frames.npy"), mmap_mode="r")
+    if args.worker == "nccl":
+        multihost.initialize(f"localhost:{args.port}", 1, 0)
+        try:
+            t = torch.tensor([[3.0, -2.0], [-1.0, 5.0]], device="cuda")
+            lo, hi = t.clone(), t.clone()
+            dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+            dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+            if not (torch.equal(lo, t) and torch.equal(hi, t)):
+                raise AssertionError("one-rank all_reduce changed its input")
+            rng = global_range(np.asarray(frames), make_mesh())
+            if rng != (float(frames.min()), float(frames.max())):
+                raise AssertionError(f"nccl global_range {rng}")
+            meta = {"backend": dist.get_backend(), "range": list(rng),
+                    "reduced": lo.tolist()}
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(args.dir, "nccl.json"), "w") as f:
+            json.dump(meta, f)
+        return 0
+    import ebcc_tpu_torch as et
+    from ebcc_tpu_torch.ops import dwt_hopper as dh
+    multihost.initialize(f"localhost:{args.port}", args.world, args.rank,
+                         backend="gloo")
+    try:
+        n = frames.shape[0]
+        config = era5_config(et, n)
+        opts = et.EncodeOptions()
+        et.encode_chunked(np.asarray(frames[:1]), era5_config(et, 1), opts)
+        dist.barrier()
+        dh.reset_launch_counts()
+        t0 = time.time()
+        streams, (start, stop) = multihost.encode_owned_chunks(
+            frames, config, opts, max_batch=4)
+        t1 = time.time()
+        launches = dh.launch_counts()
+        rng = global_range(np.asarray(frames[start:stop]), make_mesh())
+        with open(os.path.join(args.dir, f"part{args.rank}.bin"), "wb") as f:
+            f.write(multihost.container_part(streams))
+        meta = {"rank": args.rank, "start": start, "stop": stop,
+                "device": str(make_mesh().flat[0]), "t0": t0, "t1": t1,
+                "wall": t1 - t0, "launches": launches, "range": list(rng)}
+        with open(os.path.join(args.dir, f"meta{args.rank}.json"), "w") as f:
+            json.dump(meta, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main():
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    # A rank of phase 13 (the script starts these itself).
+    for flag in ("--worker", "--rank", "--world", "--port", "--dir"):
+        parser.add_argument(flag, help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.worker:
+        args.rank, args.world = int(args.rank), int(args.world)
+        return rank_worker(args)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1494,6 +1819,15 @@ def main():
                             temporal_streams, card)
     phase_rate_assembly(torch, et, dh, frames, card)
     phase_native_routing(et, frames, cab_streams, blob, codec_error, card)
+
+    # ---- phase 13: scale-out and the user surfaces ----
+    import tempfile
+    phase_sharded(torch, et, dh, frames, blob, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_two_ranks(et, frames, blob, tmp, card)
+        phase_nccl(tmp, card)
+        phase_cli(frames, tmp, card)
+        phase_trace(torch, et, frames, tmp, card)
 
     src = "ebcc_tpu_torch/csrc/dwt97.cu"
     kernels = []

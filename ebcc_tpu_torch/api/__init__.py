@@ -1,0 +1,8 @@
+"""The port's user surfaces: the filter spec (``filter_wrapper``), the
+command line (``python -m ebcc_tpu_torch.api.cli``), HDF5 datasets
+(``hdf5``) and the Zarr codec (``zarr_filter``, imported on its own: it
+imports ``numcodecs``).  Importing this package imports neither ``h5py``
+nor ``numcodecs``."""
+
+from . import cli, filter_wrapper, hdf5  # noqa: F401
+from .filter_wrapper import EBCC_Filter, populate_config  # noqa: F401

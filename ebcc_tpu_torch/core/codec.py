@@ -1667,29 +1667,44 @@ def encode_chunked(data: np.ndarray, config: CodecConfig,
     routed = _native_routed("encode")
     set_level_from_env()
     opts = opts or EncodeOptions.from_env()
-    data = np.asarray(data, dtype=np.float32).reshape(config.dims)
+    chunks, header = _container_chunks(data, config)
+    if routed:
+        streams = _native_encode_chunks(chunks, config, header.chunk_dims)
+    else:
+        streams = _encode_chunk_set(
+            chunks, config.per_chunk(header.chunk_dims), opts, max_batch,
+            dev)
+    return stream.pack_chunked(header, streams)
+
+
+def _container_header(config: CodecConfig) -> stream.ChunkedHeader:
+    """The ETPK header of the chunk grid of ``config`` (chunk dims
+    checked)."""
     chunk_dims = _container_chunk_dims(config)
     counts = _chunk_grid(config.dims, chunk_dims)
-    num_chunks = int(np.prod(counts))
-    chunk_size = int(np.prod(chunk_dims))
+    return stream.ChunkedHeader(
+        dims=tuple(config.dims), chunk_dims=chunk_dims,
+        num_chunks=int(np.prod(counts)), chunk_size=int(np.prod(chunk_dims)))
+
+
+def _container_chunks(data, config: CodecConfig):
+    """``data`` on the chunk grid of ``config`` -> ((N, n_frames, h, w)
+    host chunks in chunk-linear order, the container's header); warns when
+    edge padding adds over 10% to the values."""
+    data = np.asarray(data, dtype=np.float32).reshape(config.dims)
+    header = _container_header(config)
     total = int(np.prod(config.dims))
-    padded = chunk_size * num_chunks
+    padded = header.chunk_size * header.num_chunks
     if padded - total > total // 10:
         logger.warning(
             "Chunk padding adds %d values over %d real values (%.2f%%)",
             padded - total, total, 100.0 * (padded - total) / total)
     with stage("chunked: gather"):
-        chunks = _gather_chunks(data, chunk_dims, counts).reshape(
-            num_chunks, *_layout(chunk_dims))
-    if routed:
-        streams = _native_encode_chunks(chunks, config, chunk_dims)
-    else:
-        streams = _encode_chunk_set(chunks, config.per_chunk(chunk_dims),
-                                    opts, max_batch, dev)
-    header = stream.ChunkedHeader(
-        dims=tuple(config.dims), chunk_dims=chunk_dims,
-        num_chunks=num_chunks, chunk_size=chunk_size)
-    return stream.pack_chunked(header, streams)
+        chunks = _gather_chunks(
+            data, header.chunk_dims,
+            _chunk_grid(config.dims, header.chunk_dims)).reshape(
+                header.num_chunks, *_layout(header.chunk_dims))
+    return chunks, header
 
 
 def encode_chunked_compat(data: np.ndarray, config: CodecConfig,
@@ -1838,26 +1853,32 @@ def _native_decode_chunks(header, chunk_streams, counts,
 def _decode_chunk_subset(header, chunk_streams, counts, out_dims, max_batch,
                          device) -> np.ndarray:
     """Decode chunk streams laid out on a ``counts`` grid into an array of
-    ``out_dims`` (the grid's coverage, clipped to the container's dims).
-    One worker parses, entropy-decodes and uploads batch k+1 while the
-    device decodes batch k and the host fetches it.  Lossless chunks
-    decode on the host only."""
-    arr = _maybe_lossless_batch(chunk_streams)
-    if arr is None:
-        batches = [chunk_streams[s:s + max_batch]
-                   for s in range(0, len(chunk_streams), max_batch)]
-        decoded = []
-        with ThreadPoolExecutor(max_workers=1) as worker:
-            fut = worker.submit(_decode_streams_device, batches[0], device)
-            for i in range(len(batches)):
-                parts = fut.result()
-                if i + 1 < len(batches):
-                    fut = worker.submit(_decode_streams_device,
-                                        batches[i + 1], device)
-                with stage("dec: output fetch"):
-                    decoded.append(_finish_host(*parts))
-        arr = np.concatenate(decoded, axis=0)
+    ``out_dims`` (the grid's coverage, clipped to the container's dims)."""
+    arr = _decode_chunk_arrays(chunk_streams, max_batch, device)
     with stage("chunked: scatter"):
         return _scatter_chunks(arr.reshape(len(chunk_streams),
                                            *header.chunk_dims),
                                out_dims, header.chunk_dims, counts)
+
+
+def _decode_chunk_arrays(chunk_streams, max_batch, device) -> np.ndarray:
+    """Chunk streams -> their (N, n_frames, h, w) host arrays, decoded on
+    ``device`` ``max_batch`` chunks at a time.  One worker parses,
+    entropy-decodes and uploads batch k+1 while the device decodes batch k
+    and the host fetches it.  Lossless chunks decode on the host only."""
+    arr = _maybe_lossless_batch(chunk_streams)
+    if arr is not None:
+        return arr
+    batches = [chunk_streams[s:s + max_batch]
+               for s in range(0, len(chunk_streams), max_batch)]
+    decoded = []
+    with ThreadPoolExecutor(max_workers=1) as worker:
+        fut = worker.submit(_decode_streams_device, batches[0], device)
+        for i in range(len(batches)):
+            parts = fut.result()
+            if i + 1 < len(batches):
+                fut = worker.submit(_decode_streams_device,
+                                    batches[i + 1], device)
+            with stage("dec: output fetch"):
+                decoded.append(_finish_host(*parts))
+    return np.concatenate(decoded, axis=0)

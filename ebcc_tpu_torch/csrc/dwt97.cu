@@ -96,6 +96,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 // Coefficients rounded once from their double values, as PyTorch rounds a
@@ -845,6 +847,17 @@ __global__ void curve_reduce(const double* p_sum, const float* p_mx,
 
 // ------------------------------------------------------------------- host
 
+// Kernels launched since the library was loaded, so a caller counts the
+// launches of one call without a profiler.
+std::atomic<long long> g_launched{0};
+
+// The error of the launch just made, counted when it went out.
+int launched() {
+  const int err = (int)cudaGetLastError();
+  if (!err) g_launched.fetch_add(1, std::memory_order_relaxed);
+  return err;
+}
+
 int set_smem(const void* fn, int bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
@@ -908,7 +921,7 @@ int inverse_levels(const int32_t* q, const int32_t* cut, int cut_d0,
     if (err) return err;
     inv_coarse<<<dim3(n_frames, n_cuts), kCoarseBlock, bytes, st>>>(
         q, cut, cut_d0, hp, wp, lc, levels, plane(lc));
-    err = (int)cudaGetLastError();
+    err = launched();
     if (err) return err;
   }
   for (int l = lc - 1; l >= lo; --l) {
@@ -918,7 +931,7 @@ int inverse_levels(const int32_t* q, const int32_t* cut, int cut_d0,
     const Plane ll = l + 1 < levels ? plane(l + 1) : Plane{nullptr, 0, 0};
     inv_tile<<<grid, kTileBlock, 0, st>>>(q, cut, cut_d0, hp, wp, ll,
                                           plane(l), hl, wl, n_tj);
-    const int err = (int)cudaGetLastError();
+    const int err = launched();
     if (err) return err;
   }
   return 0;
@@ -940,6 +953,11 @@ long long ebcc_curve_scratch_floats(int n_cuts, int n_frames, int hp,
                                     int wp) {
   return (long long)(n_cuts < kCutGroup ? n_cuts : kCutGroup) *
          (long long)scratch_floats(n_frames, hp, wp);
+}
+
+// Kernels this library has launched since it was loaded.
+long long ebcc_kernels_launched() {
+  return g_launched.load(std::memory_order_relaxed);
 }
 
 // Cuts per group of ebcc_curve_stats' launches.
@@ -976,7 +994,7 @@ int ebcc_dwt2d_forward(const float* x, float* scratch, float* out, int32_t* q,
     else
       fwd_tile<false><<<grid, kTileBlock, 0, st>>>(plane(l), ll, out, q, hp,
                                                  wp, hl, wl, n_tj, last);
-    const int err = (int)cudaGetLastError();
+    const int err = launched();
     if (err) return err;
   }
   if (lc < levels) {
@@ -991,7 +1009,7 @@ int ebcc_dwt2d_forward(const float* x, float* scratch, float* out, int32_t* q,
     else
       fwd_coarse<false><<<n_frames, kCoarseBlock, bytes, st>>>(
           plane(lc), out, q, hp, wp, lc, levels);
-    err = (int)cudaGetLastError();
+    err = launched();
     if (err) return err;
   }
   return 0;
@@ -1043,12 +1061,12 @@ int ebcc_curve_stats(const int32_t* q, const float* t, const int32_t* cuts,
     if (err) return err;
     curve_tile<<<dim3(n_ti * n_tj, n_frames), kTileBlock, kCurveSmem, st>>>(
         q, cuts + k, n, ll, hp, wp, n_tj, sa);
-    err = (int)cudaGetLastError();
+    err = launched();
     if (err) return err;
   }
   curve_reduce<<<dim3(n_frames, n_cuts), kReduceThreads, 0, st>>>(
       part_sum, part_mx, part_mn, part_bad, n_ti * n_tj, out);
-  return (int)cudaGetLastError();
+  return launched();
 }
 
 }  // extern "C"

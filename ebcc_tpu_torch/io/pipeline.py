@@ -57,14 +57,11 @@ def compress_stream(data, config: CodecConfig, out: IO[bytes],
     against that slab), so the bytes are the same."""
     dev = resolve_device(device)
     opts = opts or EncodeOptions.from_env()
-    chunk_dims = _codec._container_chunk_dims(config)
+    header = _codec._container_header(config)
+    chunk_dims = header.chunk_dims
     counts = _codec._chunk_grid(config.dims, chunk_dims)
-    num_chunks = int(np.prod(counts))
     layout = _codec._layout(chunk_dims)
     chunk_cfg = config.per_chunk(chunk_dims)
-    header = stream.ChunkedHeader(
-        dims=tuple(config.dims), chunk_dims=chunk_dims,
-        num_chunks=num_chunks, chunk_size=int(np.prod(chunk_dims)))
     written = out.write(header.pack())
     with ThreadPoolExecutor(max_workers=1) as reader:
         fut = reader.submit(_slab_chunks, data, config, chunk_dims, counts, 0)
@@ -78,7 +75,7 @@ def compress_stream(data, config: CodecConfig, out: IO[bytes],
             for s in streams:
                 written += out.write(struct.pack("<Q", len(s)))
                 written += out.write(s)
-    logger.info("streamed %d chunks, %d bytes", num_chunks, written)
+    logger.info("streamed %d chunks, %d bytes", header.num_chunks, written)
     return written
 
 

@@ -79,6 +79,13 @@ def launch_counts() -> dict:
     return {k: c.value for k, c in LAUNCHES.items()}
 
 
+def cuda_kernels_launched() -> int:
+    """CUDA kernels the library of the kernels has launched since it was
+    loaded, counted at each launch site: the difference over one wrapper
+    call is the number of kernels that call launches, with no profiler."""
+    return _lib().ebcc_kernels_launched()
+
+
 _SIG_LOCK = threading.Lock()
 
 
@@ -101,6 +108,8 @@ def _lib():
             lib.ebcc_curve_cut_group.restype = i
             lib.ebcc_curve_parts.argtypes = [i, i]
             lib.ebcc_curve_parts.restype = i
+            lib.ebcc_kernels_launched.argtypes = []
+            lib.ebcc_kernels_launched.restype = ctypes.c_longlong
             lib._ebcc_sigs = True
     return lib
 

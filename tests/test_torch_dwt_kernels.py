@@ -269,6 +269,43 @@ def test_cuda_kernels_match_plain(base_test_data):
         th.dwt2d_quantize(x[..., :, :100].contiguous(), 5)
 
 
+@pytest.mark.cuda
+def test_cuda_kernels_launched_counts_each_launch():
+    """The library's own launch count at the main path's frame size: K1 and
+    K2 at 5 levels are 4 launches (3 tiled levels and one coarse launch),
+    at 3 levels 3; K3 is 4 per group of 8 cuts (3 inverse levels and the
+    level-0 statistics) plus one reduction; a refused call launches none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels build with nvcc)")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.uniform(0, 65535, (1, 1, 736, 1440)).astype(
+        np.float32)).to(dev)
+    q = th.dwt2d_quantize_plain(x, 5)
+    cut = torch.tensor([12], dtype=torch.int32, device=dev)
+    one = torch.ones(1, device=dev)
+
+    def launched(fn):
+        torch.cuda.synchronize()
+        before = th.cuda_kernels_launched()
+        fn()
+        torch.cuda.synchronize()
+        return th.cuda_kernels_launched() - before
+
+    assert launched(lambda: th.dwt2d_quantize(x, 5)) == 4
+    assert launched(lambda: th.dwt2d_transform(x, 3)) == 3
+    assert launched(lambda: th.idwt2d_dequant(q, cut, 5)) == 4
+    for grid, want in ((tuple(range(21, -1, -3)), 5),
+                       (tuple(range(21, -1, -1)), 13)):
+        assert launched(lambda grid=grid: th.curve_stats(
+            q, x, one, 0 * one, 0.5 * one, levels=5, cut_grid=grid,
+            valid_hw=(721, 1440))) == want
+    before = th.cuda_kernels_launched()
+    with pytest.raises(ValueError):
+        th.dwt2d_quantize(x[..., :100].contiguous(), 5)
+    assert th.cuda_kernels_launched() == before
+
+
 EDGE_SHAPES = [
     (2, 1, 96, 160),      # not a multiple of the 64x64 tile
     (1, 2, 224, 416),

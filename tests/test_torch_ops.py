@@ -157,7 +157,8 @@ def test_port_imports_neither_jax_nor_ebcc_tpu():
     sources = sorted(PORT_ROOT.rglob("*.py")) + [
         PORT_ROOT.parent / "chip_smoke.py"]
     assert len(sources) > 10
-    assert PORT_ROOT / "native" / "__init__.py" in sources
+    for sub in ("native", "parallel", "api"):
+        assert PORT_ROOT / sub / "__init__.py" in sources
     bad = []
     for path in sources:
         for mod in _imports(path):
