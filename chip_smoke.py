@@ -125,9 +125,29 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     Chrome trace that names K2's kernels and the trace's annotation.  A
     failing process fails the phase.
 
+14. The exchange (``core/transfer.py``), on the 32 frames of phase 3
+    (MAX_ERROR 0.5, ``max_batch`` 4), phase 8's rate frames and phase 9's
+    temporal chunks: (a) each encoded in the default form (compact Rice),
+    again (every sub-batch hinted: one copy of the small outputs and the
+    pair buffer) and with ``EBCC_NO_RICE=1`` (``torch.nonzero``): streams
+    byte-identical to those phases', down bytes per significant
+    coefficient and per point, the ``enc:`` stage times, the walls; (b)
+    each set of streams decoded through the blocked-Rice, nibble, byte,
+    bitmap and index uploads: bit-equal to the index form, up bytes per
+    significant coefficient, the ``dec:`` stage times, the walls, the
+    launches of X1 and K2; (c) X1 ``rice_unpack_qflat`` against its plain
+    version on the blocks of (b)'s first sub-batch and at nnz 0, 1, 127,
+    128, 129, an escape in every block and k at its clamp of 11, bit-equal,
+    with its device span, event and plain times and byte bound; (d) the 32
+    frames as a numpy array with the u16 upload: within 0.5 of the float
+    originals, upload bytes per point against the float upload, K1
+    launched; (e) the link probe both ways, ``backend_choice`` for encode
+    and decode, and under ``EBCC_LINK_MBPS=1`` the decision and an explicit
+    native route's ``RuntimeError`` where the host codec does not build.
+
 Phases 3, 5, 7, 8, 9 and 12 print the total stream bytes or the budget use of
 their roundtrips, and phases 3, 8 and 9 the launches of each kernel in the
-run.
+run (X1 ``rice_unpack_qflat`` among them: every decode's default upload).
 
 The line before the last is a JSON object describing every kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside
@@ -377,6 +397,19 @@ def device_profile(torch, fn, calls=5, sessions=3):
     return None, None
 
 
+def reset_all_counts(dh):
+    """Every wrapper's launch count set to 0: the kernels of
+    ``dwt_hopper`` and X1 of ``exchange_hopper``."""
+    from ebcc_tpu_torch.ops import exchange_hopper as xh
+    dh.reset_launch_counts()
+    xh.reset_launch_counts()
+
+
+def all_counts(dh):
+    from ebcc_tpu_torch.ops import exchange_hopper as xh
+    return {**dh.launch_counts(), **xh.launch_counts()}
+
+
 def kernels_launched(torch, dh, fn):
     """CUDA kernels one call of fn launches, from the kernels' library's
     own count at its launch sites (no profiler)."""
@@ -612,12 +645,12 @@ def phase_main_path(torch, et, dh, frames, card):
     et.roundtrip_frames_device(x[:4], config, opts, max_batch=4)
     torch.cuda.synchronize()
 
-    dh.reset_launch_counts()
+    reset_all_counts(dh)
     t0 = time.perf_counter()
     streams, dec = et.roundtrip_frames_device(x, config, opts, max_batch=4)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dh.launch_counts()
+    launches = all_counts(dh)
 
     maxerr = float((x - dec).abs().max())
     if not (dec.shape == x.shape and bool(torch.isfinite(dec).all())):
@@ -642,7 +675,8 @@ def phase_main_path(torch, et, dh, frames, card):
           f"max error {maxerr:.6f}, stream bytes {nbytes}")
     print(f"launches on the main path: {launches}")
     missing = [k for k in ("dwt2d_quantize", "dwt2d_transform",
-                           "idwt2d_dequant") if launches[k] == 0]
+                           "idwt2d_dequant", "rice_unpack_qflat")
+               if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
@@ -833,12 +867,12 @@ def rate_roundtrip(torch, et, dh, x, base_cr, card):
     opts = et.EncodeOptions()
     et.roundtrip_frames_device(x[:4], config, opts, max_batch=4)
     torch.cuda.synchronize()
-    dh.reset_launch_counts()
+    reset_all_counts(dh)
     t0 = time.perf_counter()
     streams, dec = et.roundtrip_frames_device(x, config, opts, max_batch=4)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dh.launch_counts()
+    launches = all_counts(dh)
     if not (dec.shape == x.shape and bool(torch.isfinite(dec).all())):
         raise AssertionError("rate roundtrip: bad decoded batch")
     limit = H * W * 4 / base_cr
@@ -892,6 +926,7 @@ def phase_rate(torch, et, dh, frames, card):
     if et.encode_frames_device(x[:4], config, max_batch=1) != streams[:4]:
         raise AssertionError("rate streams depend on the batch partitioning")
     rate_roundtrip(torch, et, dh, x[:8], 4, card)
+    rate_streams = streams
 
     small = frames[:1, :128, :256].copy()
     cfg_s = et.CodecConfig(dims=small.shape, base_cr=8, zstd_level=3)
@@ -903,7 +938,7 @@ def phase_rate(torch, et, dh, frames, card):
           f"{got[0]}, card {got[1]}")
     if got[0][:3] != got[1][:3]:
         raise AssertionError("CPU and card rate encodes pick other cuts")
-    return launches
+    return config, rate_streams
 
 
 def subpixel_shift(a, s):
@@ -938,12 +973,12 @@ def phase_temporal(torch, et, dh, frames, card):
         error=0.5, temporal=True, chunk_dims=(t, H, W), zstd_level=3)
     opts = et.EncodeOptions()
     torch.cuda.synchronize()
-    dh.reset_launch_counts()
+    reset_all_counts(dh)
     t0 = time.perf_counter()
     streams, dec = et.roundtrip_frames_device(x, config, opts, max_batch=2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dh.launch_counts()
+    launches = all_counts(dh)
     if not (dec.shape == x.shape and bool(torch.isfinite(dec).all())):
         raise AssertionError("temporal roundtrip: bad decoded batch")
     per_frame = (x - dec).abs().amax(dim=(2, 3))
@@ -982,7 +1017,7 @@ def phase_temporal(torch, et, dh, frames, card):
     if missing:
         raise AssertionError(f"kernels not launched on the temporal path: "
                              f"{missing}")
-    return x.cpu().numpy(), streams
+    return x.cpu().numpy(), streams, config
 
 
 def phase_lossless(torch, et, dh, frames, card):
@@ -1660,6 +1695,310 @@ def phase_trace(torch, et, frames, tmp, card):
           f"{k2}")
 
 
+# ---- phase 14: the exchange forms, X1, the u16 upload, routing ----
+
+UPLOAD_FORMS = {"rice": ["rice"], "nibble": ["nibble", "bytes"],
+                "bytes": ["bytes"], "bitmap": ["bitmap"], "index": ["index"]}
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name`` replaced for a ``with`` block, then restored."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def stage_line(snap, prefix):
+    return ", ".join(f"{k} {v['total_s']:.4f} s" for k, v in snap.items()
+                     if k.startswith(prefix))
+
+
+def phase_encode_forms(torch, et, runs, card):
+    """Phase 14a: each run's encode in the default form (compact Rice, the
+    hints cleared first), again (every sub-batch hinted: one copy of the
+    small outputs and the pair buffer) and with ``EBCC_NO_RICE=1`` (the
+    ``torch.nonzero`` fetch): streams byte-identical to the earlier
+    phase's, down bytes per significant coefficient and per point, the
+    ``enc:`` stage times (thread time) and the wall."""
+    from ebcc_tpu_torch.core import codec, transfer
+    real_fetch = codec._fetch_encode_outputs
+    counted = []
+
+    def counting_fetch(*a, **kw):
+        out = real_fetch(*a, **kw)
+        counted.append(int(out["sparse"].idx.size))
+        return out
+
+    for label, (x, config, mb, want) in runs.items():
+        pts = x.numel()
+        codec._EXCH_HINTS.clear()
+        for form, env in (("compact Rice", {}), ("hinted fused", {}),
+                          ("torch.nonzero", {"EBCC_NO_RICE": "1"})):
+            counted.clear()
+            transfer.reset_link_stats()
+            with env_set(**env), patched(codec, "_fetch_encode_outputs",
+                                         counting_fetch):
+                streams, wall, snap = timed_stages(
+                    et.encode_frames_device, x, config, max_batch=mb)
+            down = transfer.LINK_STATS["down"]
+            nnz = sum(counted)
+            print(f"encode {label} ({form}) on {card}: wall {wall:.4f} s, "
+                  f"down {down} B = {down / max(nnz, 1):.4f} B per "
+                  f"significant coefficient ({nnz}), {down / pts:.6f} B per "
+                  f"point; {stage_line(snap, 'enc:')}")
+            if streams != want:
+                raise AssertionError(f"{label}: the {form} encode differs "
+                                     "from the earlier phase's streams")
+        print(f"encode {label}: the three forms' streams byte-identical to "
+              "the earlier phase's")
+
+
+def phase_decode_forms(torch, et, dh, xh, runs, card):
+    """Phase 14b: each run's streams decoded through every upload form
+    (the chain pinned to it; the nibble tiers pass a batch they cannot
+    hold to the byte form, as the default chain does): bit-equal to the
+    index form, up bytes per significant coefficient, the ``dec:`` stage
+    times, the wall, and the launches of X1 and K2.  Returns the
+    arguments of X1's first call on phase 3's streams (the blocks of
+    14c)."""
+    from ebcc_tpu_torch.core import codec, transfer
+    captured = []
+    real_x1 = xh.rice_unpack_qflat
+
+    def capturing_x1(*a, **kw):
+        if not captured:
+            captured.append((a, kw))
+        return real_x1(*a, **kw)
+
+    for label, (x, config, mb, streams) in runs.items():
+        outs = {}
+        for form, chain in UPLOAD_FORMS.items():
+            seen = []
+
+            def pinned(nnz, s, chain=chain):
+                seen.append(nnz)
+                return list(chain)
+
+            dh.reset_launch_counts()
+            xh.reset_launch_counts()
+            transfer.reset_link_stats()
+            with patched(codec, "_upload_chain", pinned), \
+                    patched(xh, "rice_unpack_qflat", capturing_x1):
+                dec, wall, snap = timed_stages(
+                    et.decode_frames_device, streams, max_batch=mb)
+                torch.cuda.synchronize()
+            up = transfer.LINK_STATS["up"]
+            nnz = sum(seen)
+            outs[form] = dec
+            print(f"decode {label} ({form}) on {card}: wall {wall:.4f} s, "
+                  f"up {up} B = {up / max(nnz, 1):.4f} B per significant "
+                  f"coefficient ({nnz}); {stage_line(snap, 'dec:')}; "
+                  f"launches X1 "
+                  f"{xh.launch_counts()['rice_unpack_qflat']}, K2 "
+                  f"{dh.launch_counts()['idwt2d_dequant']}")
+            if form == "rice" and xh.launch_counts()["rice_unpack_qflat"] == 0:
+                raise AssertionError("the Rice form did not launch X1")
+        for form, dec in outs.items():
+            if not torch.equal(dec, outs["index"]):
+                raise AssertionError(f"{label}: the {form} decode differs "
+                                     "from the index form's")
+        if config.residual_mode != et.RESIDUAL_NONE:
+            err = float((outs["rice"] - x).abs().max())
+            if err > config.error:
+                raise AssertionError(f"{label}: decode error {err}")
+        print(f"decode {label}: every upload form bit-equal to the index "
+              "form")
+    return captured[0]
+
+
+def lane_case(case, rng):
+    """Blocked-Rice lane arrays of an edge case, padded as the codec pads
+    them: -> (words, lens_g, lens_v, k_packed, base_pos, nnz, n_blocks)."""
+    from ebcc_tpu_torch.core import transfer
+    n = {"escape in every block": 1024, "k at its clamp": 1024}.get(case)
+    n = int(case) if n is None else n
+    idx = np.sort(rng.choice(1 << 22, n, replace=False)).astype(np.int64)
+    vals = rng.integers(-300, 301, n).astype(np.int32)
+    if case == "escape in every block":
+        vals[::128] = -(1 << 30)
+    if case == "k at its clamp":
+        vals[:] = 1 << 13
+    w, lg, lv, kp, bp, nb = transfer.rice_block_pack_host(idx, vals)
+    if case == "k at its clamp" and not ((kp >> 4) == 11).all():
+        raise AssertionError("the k-clamp case does not reach k = 11")
+    nbk, nwk = (transfer.rice_block_bucket(nb),
+                transfer.rice_block_bucket(w.size))
+
+    def pad(a, size, dt):
+        out = np.zeros(size, dt)
+        out[:a.size] = a
+        return out
+
+    return (pad(w, nwk, np.uint32).view(np.int32),
+            pad(lg, nbk, np.uint16).view(np.int16),
+            pad(lv, nbk, np.uint16).view(np.int16), pad(kp, nbk, np.uint8),
+            pad(bp, nbk, np.int32), n, nbk)
+
+
+def phase_x1(torch, xh, first_call, main_launches, card):
+    """Phase 14c: X1 against its plain version on the card, on the blocks
+    of 14b's first sub-batch of phase 3's streams and on the edge cases;
+    qflat bit-equal each time.  Device span (median of 5 calls), event ms,
+    plain ms, byte bound, launches per 32-frame roundtrip.  Returns the
+    row of the kernels line."""
+    args, kw = first_call
+    words, lens_g, lens_v, k_packed, base_pos, nnz = args
+    fn = lambda: xh.rice_unpack_qflat(*args, **kw)
+    plain = lambda: xh.rice_unpack_qflat_plain(*args, **kw)
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("X1 disagrees with its plain version on phase "
+                             "3's blocks")
+    n_pairs = int(nnz.reshape(-1)[0])
+    before = xh.cuda_kernels_launched()
+    fn()
+    torch.cuda.synchronize()
+    per_call = xh.cuda_kernels_launched() - before
+    rng = np.random.default_rng(14)
+    for case in ("0", "1", "127", "128", "129", "escape in every block",
+                 "k at its clamp"):
+        *arrs, n, nbk = lane_case(case, rng)
+        dev = [torch.from_numpy(a).cuda() for a in arrs]
+        s = 1 << 23
+        g = xh.rice_unpack_qflat(*dev, n, n_blocks=nbk, s=s)
+        p = xh.rice_unpack_qflat_plain(*dev, n, n_blocks=nbk, s=s)
+        torch.cuda.synchronize()
+        if not torch.equal(g, p):
+            raise AssertionError(f"X1 disagrees with its plain version "
+                                 f"({case})")
+    print(f"X1 on {card}: bit-equal to its plain version on phase 3's "
+          f"blocks ({n_pairs} pairs, {kw['n_blocks']} lanes, "
+          f"{words.numel()} words) and at nnz 0, 1, 127, 128, 129, an "
+          f"escape in every block, k at its clamp of 11; {per_call} kernel "
+          "per call")
+    row = {"fn": fn, "plain": plain, "err": 0.0,
+           "nbytes": (4 * words.numel() + 5 * kw["n_blocks"] + 4
+                      + 4 * base_pos.numel() + 8 * kw["s"]),
+           "ops": 0}
+    row["ms"] = median_ms(fn)
+    row["plain_ms"] = median_ms(plain, reps=5, warm=1)
+    row["bound_ms"], row["bound_by"] = bound(row["nbytes"], row["ops"])
+    row["device_ms"], kernel_ms, per_call = x1_profile(torch, fn)
+    dev_ms = ("not measured" if row["device_ms"] is None
+              else f"{row['device_ms']:.4f} ms ({per_call} CUDA kernels "
+                   f"per call, the X1 kernel itself {kernel_ms:.4f} ms)")
+    print(f"  X1 rice_unpack_qflat: device span {dev_ms}, event "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: inputs once, the "
+          f"dense qflat written once), {main_launches} launches per "
+          "32-frame roundtrip (phase 3)")
+    return row
+
+
+def x1_profile(torch, fn, calls=5):
+    """(median device span of one call of fn, median device time of the X1
+    kernel, CUDA kernels per call) from one torch.profiler session over
+    calls + 1 calls, the first left out; a call is cut at each end of the
+    X1 kernel (``rice_lanes``), so a stray event does not lose the
+    session.  (None, None, None) when the session has no X1 kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls + 1):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset")))
+    spans, kernel, counts, start = [], [], [], 0
+    for i, (t0, t1, name) in enumerate(ev):
+        if "rice_lanes" in name:
+            spans.append((t1 - ev[start][0]) / 1e3)
+            kernel.append((t1 - t0) / 1e3)
+            counts.append(i + 1 - start)
+            start = i + 1
+    if len(spans) < 2:
+        return None, None, None
+    return (statistics.median(spans[1:]), statistics.median(kernel[1:]),
+            statistics.median(counts[1:]))
+
+
+def phase_u16(torch, et, dh, frames, main_streams, card):
+    """Phase 14d: the 32 numpy frames through ``encode_frames_device`` with
+    the u16 upload: every frame within 0.5 of the float originals under
+    the port's decoder, upload bytes per point against the float upload,
+    stream bytes against it, K1 launched."""
+    from ebcc_tpu_torch.core import transfer
+    n = frames.shape[0]
+    x = frames.reshape(n, 1, H, W)
+    config = era5_config(et, n)
+    runs = {}
+    for name, opts in (("float32", et.EncodeOptions()),
+                       ("u16", et.EncodeOptions(u16_upload=True))):
+        dh.reset_launch_counts()
+        transfer.reset_link_stats()
+        streams, wall = timed(et.encode_frames_device, x, config, opts,
+                              max_batch=4)
+        runs[name] = (streams, transfer.LINK_STATS["up"], wall,
+                      dh.launch_counts()["dwt2d_quantize"])
+    if runs["float32"][0] != main_streams:
+        raise AssertionError("the numpy float32 upload differs from phase "
+                             "3's streams")
+    streams = runs["u16"][0]
+    dec = et.decode_frames_device(streams, max_batch=4)
+    err = float((dec - torch.from_numpy(x).cuda()).abs().max())
+    for name, (st, up, wall, k1) in runs.items():
+        print(f"u16 (d) on {card}: {name} upload {up} B = {up / x.size:.4f} "
+              f"B per point, streams {sum(map(len, st))} B, encode wall "
+              f"{wall:.4f} s, K1 launches {k1}")
+    print(f"u16 (d): max error {err:.6f} against the float originals")
+    if err > config.error or runs["u16"][3] == 0:
+        raise AssertionError(f"u16 upload: error {err}, K1 launches "
+                             f"{runs['u16'][3]}")
+
+
+def phase_routing(et, frames, card):
+    """Phase 14e: the link probe of the card both ways, ``backend_choice``
+    for encode and decode, and under ``EBCC_LINK_MBPS=1`` the decision and
+    an explicit native route's ``RuntimeError`` (the host codec does not
+    build without zstd)."""
+    from ebcc_tpu_torch.core import routing
+    with env_set(EBCC_LINK_MBPS=""):          # "" = probe the link
+        routing.reset_cache()
+        up, down = routing.link_mbps("cuda")
+        choice = {k: routing.backend_choice(k) for k in ("encode", "decode")}
+    print(f"routing (e) on {card}: link probe {up:.1f} MB/s up, "
+          f"{down:.1f} MB/s down; host codec available "
+          f"{routing._native_available()}; backend_choice {choice}")
+    with env_set(EBCC_LINK_MBPS="1"):
+        routing.reset_cache()
+        slow = {k: routing.backend_choice(k) for k in ("encode", "decode")}
+        print(f"routing (e) with EBCC_LINK_MBPS=1: backend_choice {slow}")
+        with env_set(EBCC_ENCODE_BACKEND="native"):
+            try:
+                et.encode(frames[0], era5_config(et, 1))
+                raised = None
+            except RuntimeError as e:
+                raised = error_line(e)
+    routing.reset_cache()
+    print(f"routing (e): explicit native encode raised RuntimeError: "
+          f"{raised}")
+    if routing._native_available():
+        return
+    if set(choice.values()) != {"device"} or set(slow.values()) != {
+            "device"} or raised is None:
+        raise AssertionError("routing without a host codec must stay on the "
+                             "device, and an explicit native route raise")
+
+
 def rank_worker(args):
     """One rank of phase 13b or 13c (this script run with ``--worker``)."""
     import torch
@@ -1798,10 +2137,11 @@ def main():
     phase_tall(torch, et, dh, tall, card)
 
     # ---- phase 8: rate mode ----
-    phase_rate(torch, et, dh, frames, card)
+    rate_config, rate_streams = phase_rate(torch, et, dh, frames, card)
 
     # ---- phase 9: temporal mode ----
-    drifting, temporal_streams = phase_temporal(torch, et, dh, frames, card)
+    drifting, temporal_streams, temporal_config = phase_temporal(
+        torch, et, dh, frames, card)
 
     # ---- phase 10: lossless mode ----
     phase_lossless(torch, et, dh, frames, card)
@@ -1829,6 +2169,20 @@ def main():
         phase_cli(frames, tmp, card)
         phase_trace(torch, et, frames, tmp, card)
 
+    # ---- phase 14: the exchange forms, X1, the u16 upload, routing ----
+    from ebcc_tpu_torch.ops import exchange_hopper as xh
+    n = frames.shape[0]
+    x_main = torch.from_numpy(frames).reshape(n, 1, H, W).cuda()
+    runs = {"MAX_ERROR": (x_main, era5_config(et, n), 4, main_streams),
+            "rate": (x_main, rate_config, 4, rate_streams),
+            "temporal": (torch.from_numpy(drifting).cuda(), temporal_config,
+                         2, temporal_streams)}
+    phase_encode_forms(torch, et, runs, card)
+    first_call = phase_decode_forms(torch, et, dh, xh, runs, card)
+    x1 = phase_x1(torch, xh, first_call, launches["rice_unpack_qflat"], card)
+    phase_u16(torch, et, dh, frames, main_streams, card)
+    phase_routing(et, frames, card)
+
     src = "ebcc_tpu_torch/csrc/dwt97.cu"
     kernels = []
     for name in ("dwt2d_quantize", "dwt2d_transform", "idwt2d_dequant",
@@ -1840,6 +2194,15 @@ def main():
             "max_abs_err": row["err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
+    kernels.append({
+        "name": "exchange_rice_unpack", "route": "cuda",
+        "source": "ebcc_tpu_torch/csrc/exchange.cu",
+        "replaces": "ebcc_tpu/core/transfer.py:842 (XLA lax.scan, no Pallas "
+                    "kernel)",
+        "launches": launches["rice_unpack_qflat"], "max_abs_err": x1["err"],
+        "ms": x1["ms"], "plain_ms": x1["plain_ms"],
+        "bound_ms": x1["bound_ms"], "bound_by": x1["bound_by"],
+        "library_ms": None})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -34,23 +34,35 @@ Entropy coding and plane packing run on the host, in the port's own C++
 of every encode (``EBCC_NO_NATIVE_PACK=1`` selects its numpy twin) and the
 plane unpacker of every decode (``EBCC_NO_NATIVE_UNPACK=1``, likewise).
 
+The host<->device exchange is the reference's (:mod:`.transfer`): encode
+outputs come back as Rice-coded (position gap, value) pairs compacted on
+the device (``EBCC_NO_RICE=1``, or too many pairs, takes a
+``torch.nonzero`` fetch of int32 positions and values), and a decode
+uploads blocked-Rice lanes that the X1 kernel decodes on the card, with
+nibble tiers (``EBCC_NO_RICE_UPLOAD=1``), bytes
+(``EBCC_NO_NIBBLE_UPLOAD=1``) and a bitmap or the index vector
+(``EBCC_NO_BYTE_UPLOAD=1``) as the fallbacks.  Every leg counts its bytes
+in ``transfer.LINK_STATS``.  ``EncodeOptions.u16_upload`` /
+``EBCC_U16_UPLOAD=1`` uploads numpy frames of intra error-bounded encodes
+as uint16 with the quantization slack taken off the target.
+
 Native routing: ``EBCC_ENCODE_BACKEND`` / ``EBCC_DECODE_BACKEND`` =
 ``native`` (or ``host``) sends ``encode``, ``encode_chunked`` (and so
 ``encode_chunked_compat``), ``decode``, ``decode_chunked`` and
 ``decode_chunked_region`` to the port's copy of the host C++ codec, which
 needs zstd to build and raises ``RuntimeError`` when it cannot be built.
-Unset or ``auto`` stays on the device path: the reference's automatic
-choice from a link probe is not ported (ROADMAP Queue 1 item 6).
+Unset or ``auto`` chooses from a link probe (:mod:`.routing`), and stays on
+the device path where the host codec cannot be built.
 
-Features the port does not cover yet (the u16 upload, reference-format
-streams) raise ``NotImplementedError`` naming the ROADMAP item that adds
-them.
+Reference-format streams (EBCC/EBCK) raise ``NotImplementedError`` naming
+the ROADMAP item that adds them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
 
@@ -63,7 +75,7 @@ from ..config import CodecConfig, EncodeOptions
 from ..device import resolve_device
 from ..utils.logging import TRACE, logger, set_level_from_env, trace
 from ..utils.timing import stage
-from . import entropy, kernels, stream
+from . import entropy, kernels, routing, stream, transfer
 
 # Residual payloads at or below this many compressed bytes are dropped
 # (reference drop rule, ebcc_tpu/core/codec.py:43).
@@ -116,27 +128,22 @@ def _temporal_active(config: CodecConfig, n_frames: int) -> bool:
             and config.residual_mode != cfg.RESIDUAL_NONE)
 
 
-def _check_supported(config: CodecConfig, opts: EncodeOptions,
-                     n_frames: int) -> int:
-    """Raise for what the port does not cover yet; returns the backend id.
-    The u16 upload applies, as in the reference, to the intra
-    error-bounded encode only."""
-    if (opts.u16_upload and config.residual_mode != cfg.RESIDUAL_NONE
-            and not _temporal_active(config, n_frames)):
-        raise _not_ported("the u16 upload", "6, link-saving exchange code")
-    return entropy.backend_id(config)
-
-
-def _native_routed(kind: str) -> bool:
-    """Whether ``EBCC_ENCODE_BACKEND`` / ``EBCC_DECODE_BACKEND`` (``kind``
-    "encode" / "decode") routes the call to the port's host codec:
-    ``native`` or ``host`` do (reference ``routing.explicit``,
-    codec.py:1498-1531, :2212-2240).  An unset value, ``auto`` or
-    ``device`` stays on the device path; the reference's link-probe choice
-    is ROADMAP Queue 1 item 6.  A routed call whose library cannot be built
-    raises ``RuntimeError`` here, before any work."""
-    v = os.environ.get(f"EBCC_{kind.upper()}_BACKEND", "").lower()
-    if v not in ("native", "host"):
+def _native_routed(kind: str, device, opts=None) -> bool:
+    """Whether a host-destined ``kind`` ("encode" / "decode") call on
+    ``device`` goes to the port's host codec (reference
+    ``_native_encoder`` / ``_native_decoder``, codec.py:1498-1531,
+    :2212-2240): ``EBCC_ENCODE_BACKEND`` / ``EBCC_DECODE_BACKEND`` =
+    ``native`` or ``host`` routes it, ``device`` (``jax``, ``tpu``,
+    ``accel``) keeps it on the device, and unset or ``auto`` takes
+    ``routing.backend_choice``.  An automatic encode with options other
+    than the environment's stays on the device (the host codec reads its
+    options from the environment).  An explicit route whose library
+    cannot be built raises ``RuntimeError`` here, before any work."""
+    if routing.explicit(kind) is None:
+        if (opts is not None and kind == "encode"
+                and opts != EncodeOptions.from_env()):
+            return False
+    if routing.backend_choice(kind, device) != "native":
         return False
     native.load_codec()
     return True
@@ -230,7 +237,7 @@ def _apply_nan_masks_device(out, nan_masks):
     for i, p in enumerate(nan_masks):
         if p is not None:
             packed[i] = np.frombuffer(p, np.uint8, count=need)
-    pk = torch.from_numpy(packed).to(out.device)
+    pk = _put(packed, out.device)
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=out.device)
     bits = (pk[:, :, None] >> shifts) & 1
     m = bits.reshape(n, -1)[:, :sz].reshape(out.shape).to(torch.bool)
@@ -282,7 +289,7 @@ def _prepare_input(x, config: CodecConfig, opts: EncodeOptions, device):
     time); a tensor is cast to float32 on its own device.  -> (float32
     batch, internal config, masks, backend id, device)."""
     _check_frames_input(x)
-    backend = _check_supported(config, opts, x.shape[1])
+    backend = entropy.backend_id(config)
     x, masks = _mask_fill_check(x, config.allow_nan)
     x, internal = _log_transform_check(x, config)
     if isinstance(x, np.ndarray):
@@ -292,10 +299,46 @@ def _prepare_input(x, config: CodecConfig, opts: EncodeOptions, device):
 
 
 def _on_device(xb, device):
-    """A numpy batch slice uploaded to ``device``; a tensor as it is."""
+    """A numpy batch slice uploaded to ``device`` (its bytes counted); a
+    tensor as it is."""
     if isinstance(xb, np.ndarray):
+        transfer.count_up(xb.nbytes)
         return torch.from_numpy(xb).to(device)
     return xb
+
+
+# The u16 upload applies only when every chunk's absolute target is at
+# least this many times the u16 quantization slack, so the slack takes at
+# most ~3% of the error budget (reference codec.py:1337-1350).
+_U16_MIN_TARGET_OVER_SLACK = 32.0
+
+
+def _u16_upload_ok(minv: np.ndarray, maxv: np.ndarray,
+                   config: CodecConfig) -> bool:
+    slack = (maxv - minv) / (2.0 * kernels.BASE_SCALE)
+    if config.residual_mode == cfg.RESIDUAL_RELATIVE_ERROR:
+        targets = config.error * (maxv - minv)
+    else:
+        targets = np.full_like(slack, config.error)
+    return bool(np.all(targets >= _U16_MIN_TARGET_OVER_SLACK * slack))
+
+
+def _u16_batch(xb, config: CodecConfig, opts: EncodeOptions):
+    """The u16 upload of a numpy batch of an intra error-bounded encode
+    (reference codec.py:1402-1416) -> (xq uint16, minv, maxv), or None
+    when the option is off, the batch is a tensor, or a target is too
+    tight for the slack (the float32 upload then)."""
+    if not (opts.u16_upload and isinstance(xb, np.ndarray)):
+        return None
+    minv = xb.min(axis=(1, 2, 3)).astype(np.float32)
+    maxv = xb.max(axis=(1, 2, 3)).astype(np.float32)
+    if not _u16_upload_ok(minv, maxv, config):
+        return None
+    rngv = np.where(minv == maxv, np.float32(1.0), maxv - minv)
+    xq = np.rint((xb - minv[:, None, None, None])
+                 / rngv[:, None, None, None]
+                 * kernels.BASE_SCALE).astype(np.uint16)
+    return xq, minv, maxv
 
 
 def _finish_streams(streams: List[bytes], config: CodecConfig,
@@ -979,19 +1022,23 @@ def _assemble_batch(out_np, config, opts, n_frames, h, w, backend,
 # Device encode and the exchange
 # ---------------------------------------------------------------------------
 
-def _fetch_small(small: dict) -> dict:
-    """One device-to-host copy of every small encode output: bit-pack them
-    into one int32 vector on the device, split and bitcast on the host."""
-    keys = sorted(small)
+def _pack_small(small: dict):
+    """Every small encode output bit-packed into one int32 vector on the
+    device, in key order."""
     parts = []
-    for k in keys:
+    for k in sorted(small):
         v = small[k].reshape(-1)
         parts.append(v.view(torch.int32) if v.dtype == torch.float32
                      else v.to(torch.int32))
-    flat = torch.cat(parts).cpu().numpy()
+    return torch.cat(parts)
+
+
+def _split_small(flat: np.ndarray, small: dict) -> dict:
+    """Host-side inverse of :func:`_pack_small`, with ``small`` (the device
+    outputs) as the template of shapes and types."""
     outd = {}
     off = 0
-    for k in keys:
+    for k in sorted(small):
         v = small[k]
         n = v.numel()
         raw = flat[off:off + n]
@@ -1006,26 +1053,184 @@ def _fetch_small(small: dict) -> dict:
     return outd
 
 
+def _fetch_small(small: dict) -> dict:
+    """One device-to-host copy of every small encode output."""
+    flat = _pack_small(small).cpu().numpy()
+    transfer.count_down(flat.nbytes)
+    return _split_small(flat, small)
+
+
+def _rice_enabled() -> bool:
+    """The compact Rice exchange and the blocked-Rice packer need the
+    port's host library (its Rice readers and packer): on whenever it
+    builds and loads; ``EBCC_NO_RICE=1`` turns it off (reference
+    codec.py:710-720)."""
+    if os.environ.get("EBCC_NO_RICE"):
+        return False
+    try:
+        native.load_host()
+        return True
+    except (RuntimeError, OSError):
+        return False
+
+
+# Fused encode-direction fetch (reference codec.py:792-942): with a size
+# hint from the previous sub-batch of the same shape, one copy brings the
+# small outputs and the compacted Rice pair; the small outputs then give
+# the true count and the Rice header the true word count, so a hint miss
+# costs more copies, never correctness.  The hint only sizes transfers.
+_EXCH_HINTS: dict = {}
+_EXCH_LOCK = threading.Lock()
+
+
+def _exch_hint_get(key):
+    with _EXCH_LOCK:
+        return _EXCH_HINTS.get(key)
+
+
+def _exch_hint_put(key, nnz: int, words: int) -> None:
+    with _EXCH_LOCK:
+        _EXCH_HINTS[key] = {"nnz": int(nnz), "words": int(words)}
+
+
+def _decode_rice_pair_host(head: np.ndarray, nnz: int, hp: int, wp: int):
+    """Host side of the compact exchange: split the fetched pair buffer
+    (uint32) and Rice-decode positions and classed values with the port's
+    native readers."""
+    ga, vb_ = transfer.split_rice_pair(head, nnz)
+    idx = native.rice_decode_gaps_classed(
+        ga, nnz, hp, wp, transfer.unpack_rice_ks(ga[1]))
+    cls = transfer.coeff_class_host(idx, hp, wp)
+    vals = native.rice_decode_classed(
+        vb_, nnz, cls, transfer.unpack_rice_ks(vb_[1]))
+    return idx, vals
+
+
+def _empty_sparse(b, d0, hp, wp):
+    return _SparseBatch(np.zeros(0, np.int32), np.zeros(0, np.int32), b, d0,
+                        hp, wp)
+
+
+def _fetch_rice_pair(out, cap: int, key, nnz: int, hp: int, wp: int):
+    """Compact at ``cap``, fetch the exact word count (4 bytes), then the
+    pair buffer -> host (positions, values)."""
+    words_dev, needed_dev = transfer.compact_rice_exchange(
+        out["vals_comb"], out["sig_comb"].reshape(-1), cap=cap, hw=(hp, wp))
+    need = int(needed_dev)
+    transfer.count_down(4)
+    bound = min(transfer.rice_block_bucket(need), int(words_dev.shape[0]))
+    head = transfer.sliced_get(words_dev[:bound]).view(np.uint32)
+    transfer.count_down(4 * bound)
+    _exch_hint_put(key, nnz, need)
+    return _decode_rice_pair_host(head, nnz, hp, wp)
+
+
+def _fused_fetch_encode_outputs(out, small_dev, key, hint, b, d0, hp, wp):
+    """Hint-sized single-copy fetch of the small outputs and the Rice
+    pair.  Returns the host outputs, or None when the hinted capacity
+    cannot be used (the caller takes the unhinted path)."""
+    cap = transfer.bucket_count(max(1, int(hint["nnz"] * 1.15)))
+    if cap > transfer.COMPACT_CAP_LIMIT:
+        return None
+    max_words = transfer.RICE_PAIR_HEADER_WORDS + (104 * cap) // 32 + 8
+    bound = min(transfer.rice_block_bucket(
+        max(64, int(hint["words"] * 1.04))), max_words)
+    with stage("enc: fused fetch"):
+        with stage("enc: fused dispatch"):
+            packed = _pack_small(small_dev)
+            words_dev, _ = transfer.compact_rice_exchange(
+                out["vals_comb"], out["sig_comb"].reshape(-1), cap=cap,
+                hw=(hp, wp))
+            head_dev = torch.cat([packed, words_dev[:bound]])
+        n_small = packed.numel()
+        transfer.count_down(4 * (n_small + bound))
+        with stage("enc: fused get"):
+            flat = transfer.sliced_get(head_dev)
+        outd = _split_small(flat[:n_small], small_dev)
+        nnz = int(outd.pop("exchange_nnz"))
+        if nnz == 0:
+            _exch_hint_put(key, 0, 64)
+            outd["sparse"] = _empty_sparse(b, d0, hp, wp)
+            return outd
+        if nnz > cap:
+            # Hint miss (the count grew over 15%): compact again at the
+            # true capacity.
+            cap2 = transfer.bucket_count(nnz)
+            if cap2 > transfer.COMPACT_CAP_LIMIT:
+                return None
+            idx, vals = _fetch_rice_pair(out, cap2, key, nnz, hp, wp)
+            outd["sparse"] = _SparseBatch(idx, vals, b, d0, hp, wp)
+            return outd
+        head = flat[n_small:].view(np.uint32)
+        need = (transfer.RICE_PAIR_HEADER_WORDS + (int(head[0]) + 31) // 32
+                + (int(head[2]) + 31) // 32)
+        if need > bound:
+            # Rare: more bits than the hint allowed; the tail is still in
+            # the full word buffer on the device.
+            hi = min(transfer.rice_block_bucket(need), max_words)
+            tail = transfer.sliced_get(words_dev[bound:hi]).view(np.uint32)
+            transfer.count_down(tail.nbytes)
+            head = np.concatenate([head, tail])
+        _exch_hint_put(key, nnz, need)
+        with stage("enc: fused host rice"):
+            idx, vals = _decode_rice_pair_host(head, nnz, hp, wp)
+        outd["sparse"] = _SparseBatch(idx, vals, b, d0, hp, wp)
+        return outd
+
+
 def _fetch_encode_outputs(out: dict, b: int, d0: int, hp: int,
                           wp: int) -> dict:
-    """Device encode outputs -> host: the small outputs in one copy, then
-    the sparse exchange (``torch.nonzero`` over the flat kept-values of both
-    layers keeps the sorted (layer, chunk) order), one copy of the int32
-    indices and one of the values."""
-    vals_comb = out["vals_comb"]
+    """Device encode outputs -> host through the sparse exchange
+    (reference ``_fetch_encode_outputs``, codec.py:945-1011).
+
+    With the port's host library: after a sub-batch of the same shape, one
+    hint-sized copy of the small outputs and the compacted Rice pair
+    (:func:`_fused_fetch_encode_outputs`); else the small outputs in one
+    copy, then ``transfer.compact_rice_exchange`` at the bucketed true
+    count, a 4-byte copy of its exact size and one copy of the pair buffer
+    (~1.3 B per significant coefficient), Rice-decoded on the host.
+    Without it (``EBCC_NO_RICE=1``), or above ``COMPACT_CAP_LIMIT``, a
+    ``torch.nonzero`` over the flat kept values (sorted (layer, chunk)
+    order, the pairs the reference's bitmap fallback derives) and one copy
+    each of the int32 positions and values."""
+    small_dev = {k: v for k, v in out.items()
+                 if k not in ("vals_comb", "sig_comb")}
+    key = tuple(out["sig_comb"].shape)
+    if _rice_enabled():
+        hint = _exch_hint_get(key)
+        if hint is not None:
+            res = _fused_fetch_encode_outputs(out, small_dev, key, hint, b,
+                                              d0, hp, wp)
+            if res is not None:
+                return res
+
     with stage("enc: small fetch (+compute)"):
-        small = _fetch_small({k: v for k, v in out.items()
-                              if k != "vals_comb"})
+        small = _fetch_small(small_dev)
+    nnz = int(small.pop("exchange_nnz"))
+    if nnz == 0:
+        small["sparse"] = _empty_sparse(b, d0, hp, wp)
+        return small
+    if (_rice_enabled()
+            and transfer.bucket_count(nnz) <= transfer.COMPACT_CAP_LIMIT):
+        with stage(f"enc: compact+rice fetch {nnz} vals"):
+            idx, vals = _fetch_rice_pair(out, transfer.bucket_count(nnz),
+                                         key, nnz, hp, wp)
+        small["sparse"] = _SparseBatch(idx, vals, b, d0, hp, wp)
+        return small
+    vals_comb = out["vals_comb"]
     with stage("enc: sparse fetch"):
         idx = torch.nonzero(vals_comb).reshape(-1)
         vals = vals_comb[idx].cpu().numpy()
         idx = idx.to(torch.int32).cpu().numpy()
+        transfer.count_down(idx.nbytes + vals.nbytes)
     small["sparse"] = _SparseBatch(idx, vals, b, d0, hp, wp)
     return small
 
 
-def _encode_to_host(xb, config: CodecConfig, opts: EncodeOptions) -> dict:
-    """Device encode of one (B, n_frames, h, w) batch, fetched to host."""
+def _encode_to_host(xb, config: CodecConfig, opts: EncodeOptions,
+                    device) -> dict:
+    """Device encode of one (B, n_frames, h, w) batch (a tensor on its
+    device, or a numpy batch uploaded to ``device``), fetched to host."""
     b, n_frames, h, w = xb.shape
     hp, wp = _padded_hw(h, w, max(config.base_levels, config.residual_levels))
     if b > _max_safe_batch(n_frames * hp * wp):
@@ -1035,14 +1240,28 @@ def _encode_to_host(xb, config: CodecConfig, opts: EncodeOptions) -> dict:
     levels = dict(base_levels=config.base_levels,
                   res_levels=config.residual_levels)
     relative = config.residual_mode == cfg.RESIDUAL_RELATIVE_ERROR
+    intra = (config.residual_mode != cfg.RESIDUAL_NONE
+             and not _temporal_active(config, n_frames))
+    u16 = _u16_batch(xb, config, opts) if intra else None
+    if u16 is not None:
+        transfer.count_up(sum(a.nbytes for a in u16))
+        xq, minv, maxv = (torch.from_numpy(a).to(device) for a in (
+            u16[0].view(np.int16), u16[1], u16[2]))
+    else:
+        xb = _on_device(xb, device)
     with stage("enc: device"):
         if config.residual_mode == cfg.RESIDUAL_NONE:
             out = kernels.encode_batch_rate_only(
                 xb, _rate_budget(config, n_frames, h, w), **levels)
-        elif _temporal_active(config, n_frames):
+        elif not intra:
             out = kernels.encode_batch_temporal(
                 xb, config.error, opts.base_quantile_target,
                 relative_mode=relative, **levels)
+        elif u16 is not None:
+            out = kernels.encode_batch_u16(
+                xq, minv, maxv, config.error, opts.base_quantile_target,
+                relative_mode=relative,
+                use_centered=not opts.disable_mean_adjustment, **levels)
         else:
             out = kernels.encode_batch(
                 xb, config.error, opts.base_quantile_target,
@@ -1062,7 +1281,7 @@ def _pipeline_encode_slices(slices, config: CodecConfig, opts: EncodeOptions,
     by its fetch worker, so only the slices in flight are on the device.
     The streams do not depend on how the chunks are sliced."""
     def run(sl):
-        return _encode_to_host(_on_device(sl, device), config, opts)
+        return _encode_to_host(sl, config, opts, device)
 
     if len(slices) == 1:
         return _assemble_batch(run(slices[0]), config, opts, n_frames, h, w,
@@ -1094,7 +1313,7 @@ def encode(data: np.ndarray, config: CodecConfig,
     n_frames, h, w = _layout(config.dims)
     logger.info("%s", config.describe())
     data = data.reshape(1, n_frames, h, w)
-    if _native_routed("encode"):
+    if _native_routed("encode", device, opts):
         # Reference codec.py:1545-1557: the host codec codes the filled
         # data; the mask sections are appended here.
         if config.residual_mode == cfg.RESIDUAL_LOSSLESS:
@@ -1256,8 +1475,10 @@ def _decode_streams_device(streams: List[bytes], device):
     mask bitmaps).  NaNs are not restored here.
 
     The host entropy-decodes the payloads and extracts the sorted (index,
-    signed kept-value) pairs; both go up in one copy each, and one scatter
-    plus the inverse transforms rebuild the batch on the device.  Temporal
+    signed kept-value) pairs; they go up in the first form of
+    :func:`_upload_chain` that takes them (blocked Rice by default), the
+    device rebuilds the dense coefficient vector from them, and the
+    inverse transforms rebuild the batch.  Temporal
     streams decode as one single-frame entry per frame (frame 0's two
     layers, then one delta layer per later frame), which
     :func:`kernels.temporal_accumulate` adds up in the order the encoder
@@ -1269,7 +1490,7 @@ def _decode_streams_device(streams: List[bytes], device):
     if lossless is not None:
         n = lossless.shape[0]
         with stage("dec: upload lossless"):
-            out = torch.from_numpy(lossless).to(device)
+            out = _put(lossless, device)
         return out, np.zeros(n, bool), np.zeros(n, np.float32), None
     headers, payloads, temporal_parts, nan_masks = _parse_streams(streams)
     h0 = headers[0]
@@ -1393,23 +1614,192 @@ def _decode_streams_device(streams: List[bytes], device):
         idx, vals = _unpack_planes(raws, (ent_d0, hp, wp))
 
     with stage("dec: upload sparse + decode"):
-        as16 = bool(np.abs(vals).max() < (1 << 15)) if vals.size else True
-        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
-            device)
-        idx_dev = to_dev(idx.astype(np.int32)).to(torch.int64)
-        vals_dev = to_dev(vals.astype(np.int16 if as16 else np.int32))
-        out = kernels.decode_batch_sparse(
-            idx_dev, vals_dev, to_dev(base_cut), to_dev(res_cut),
-            to_dev(minval), to_dev(maxval), to_dev(rmin), to_dev(rmax),
-            base_levels=h0.base_levels, res_levels=h0.res_levels,
-            out_hw=(h, w), has_residual=any_residual,
-            grid_shape=(ne, ent_d0, hp, wp))
+        kw = dict(base_levels=h0.base_levels, res_levels=h0.res_levels,
+                  out_hw=(h, w), has_residual=any_residual,
+                  grid_shape=(ne, ent_d0, hp, wp))
+        scalars = (base_cut, res_cut, minval, maxval, rmin, rmax)
+        for form in _upload_chain(idx.size, ne * sc):
+            out = _UPLOADS[form](idx, vals, scalars, device, kw)
+            if out is not None:
+                break
         if temporal:
             out = kernels.temporal_accumulate(out, t_frames)
         if log_flags.any():
-            fl = to_dev(log_flags[:, None, None, None])
+            fl = _put(log_flags[:, None, None, None], device)
             out = torch.where(fl, torch.exp(out), out)
     return out, const_mask, const_val, nan_masks
+
+
+def _put(a: np.ndarray, device):
+    """One host array uploaded to ``device``, its bytes counted."""
+    a = np.ascontiguousarray(a)
+    transfer.count_up(a.nbytes)
+    return torch.from_numpy(a).to(device)
+
+
+def _upload_chain(nnz: int, s: int) -> list:
+    """The decode upload forms to try, in order, for ``nnz`` pairs over a
+    coefficient space of ``s`` per layer (reference codec.py:1866-1878,
+    :1880): blocked Rice (unless ``EBCC_NO_RICE_UPLOAD=1`` or above
+    ``COMPACT_CAP_LIMIT``: its lane offsets are int32 in the reference),
+    nibble tiers (unless ``EBCC_NO_NIBBLE_UPLOAD=1``; a batch whose escapes
+    overflow the tiers passes on), bytes; with ``EBCC_NO_BYTE_UPLOAD=1``
+    the bitmap where it is smaller than the int32 index vector, else the
+    index vector."""
+    cap = transfer.bucket_count(max(1, nnz))
+    if os.environ.get("EBCC_NO_BYTE_UPLOAD"):
+        return ["bitmap"] if 4 * cap > (2 * s) // 8 else ["index"]
+    chain = []
+    if (not os.environ.get("EBCC_NO_RICE_UPLOAD")
+            and cap <= transfer.COMPACT_CAP_LIMIT):
+        chain.append("rice")
+    if not os.environ.get("EBCC_NO_NIBBLE_UPLOAD"):
+        chain.append("nibble")
+    return chain + ["bytes"]
+
+
+def _floats(scalars) -> np.ndarray:
+    """(4, B) float32 [minval, maxval, rmin, rmax] of the decode scalars."""
+    return np.stack(scalars[2:]).astype(np.float32)
+
+
+def _upload_rice(idx, vals, scalars, device, kw):
+    """Blocked-Rice upload (~1.0 B per pair; reference codec.py:1880-1930):
+    the pairs packed by ``native.rice_block_pack`` (its numpy twin without
+    the host library) into one buffer, decoded into ``qflat`` by X1."""
+    base_cut, res_cut = scalars[:2]
+    ne = base_cut.size
+    with stage("dec: rice pack host"):
+        pack = (native.rice_block_pack if _rice_enabled()
+                else transfer.rice_block_pack_host)
+        words, lens_g, lens_v, k_packed, base_pos, nb = pack(idx, vals)
+    nbk = transfer.rice_block_bucket(nb)
+    nwk = transfer.rice_block_bucket(words.size)
+    n_ints = nbk + 2 * ne + 1
+    buf = np.zeros(4 * nwk + 5 * nbk + 4 * n_ints + 16 * ne, np.uint8)
+    buf[:4 * words.size] = words.view(np.uint8)
+    o = 4 * nwk
+    # Padded lanes keep length 0, so the derived lane offsets stay right.
+    buf[o:o + 2 * nb] = lens_g.view(np.uint8)
+    o += 2 * nbk
+    buf[o:o + 2 * nb] = lens_v.view(np.uint8)
+    o += 2 * nbk
+    buf[o:o + nb] = k_packed
+    o += nbk
+    ints = np.zeros(n_ints, np.int32)
+    ints[:nb] = base_pos
+    ints[nbk:nbk + ne] = base_cut
+    ints[nbk + ne:nbk + 2 * ne] = res_cut
+    ints[nbk + 2 * ne] = idx.size
+    buf[o:o + 4 * n_ints] = ints.view(np.uint8)
+    buf[o + 4 * n_ints:] = _floats(scalars).reshape(-1).view(np.uint8)
+    transfer.count_up(buf.nbytes)
+    with stage("dec: rice upload"):
+        buf_dev = transfer.sliced_put(buf, device)
+    b, d0, hp, wp = kw["grid_shape"]
+    with stage("dec: rice dispatch"):
+        return kernels.decode_from_qflat_program(
+            *kernels.rice_unpack_qflat(buf_dev, n_blocks=nbk, n_words=nwk,
+                                       n_entries=ne, s=b * d0 * hp * wp),
+            **kw)
+
+
+def _upload_nibble(idx, vals, scalars, device, kw):
+    """Nibble-tier upload in one buffer (reference codec.py:1931-1974), or
+    None when the escapes overflow the tiers."""
+    cap = transfer.bucket_count(max(1, idx.size))
+    gt, vt = transfer.nibble_pack_sparse_host(idx, vals)
+    if not (transfer.nibble_fits(gt, cap, "gap")
+            and transfer.nibble_fits(vt, cap, "val")):
+        return None
+    base_cut, res_cut = scalars[:2]
+    ne = base_cut.size
+    nb2 = (cap + 1) // 2
+    g8c, g16c, g32c = transfer.nib_tier_caps(cap, "gap")
+    v8c, v16c, v32c = transfer.nib_tier_caps(cap, "val")
+    n_bytes = 2 * nb2 + g8c + v8c + 2 * (g16c + v16c)
+    n_ints = g32c + v32c + 2 * ne + 1
+    buf = np.zeros(n_bytes + 4 * n_ints + 16 * ne, np.uint8)
+    o = 0
+    for seg, size in ((transfer.pack_nibbles(gt[0], cap), nb2),
+                      (transfer.pack_nibbles(vt[0], cap), nb2),
+                      (gt[1], g8c), (vt[1], v8c),
+                      (gt[2].astype("<u2").view(np.uint8), 2 * g16c),
+                      (vt[2].astype("<u2").view(np.uint8), 2 * v16c)):
+        buf[o:o + seg.size] = seg
+        o += size
+    ints = np.zeros(n_ints, np.int32)
+    ints[:gt[3].size] = gt[3]
+    ints[g32c:g32c + vt[3].size] = vt[3]
+    ints[g32c + v32c:g32c + v32c + ne] = base_cut
+    ints[g32c + v32c + ne:g32c + v32c + 2 * ne] = res_cut
+    ints[g32c + v32c + 2 * ne] = idx.size
+    buf[n_bytes:n_bytes + 4 * n_ints] = ints.view(np.uint8)
+    buf[n_bytes + 4 * n_ints:] = _floats(scalars).reshape(-1).view(np.uint8)
+    transfer.count_up(buf.nbytes)
+    return kernels.decode_batch_sparse_nibble_fused(
+        transfer.sliced_put(buf, device), cap=cap, **kw)
+
+
+def _upload_bytes(idx, vals, scalars, device, kw):
+    """Byte-coded upload in one buffer per type (reference
+    codec.py:1975-2001)."""
+    cap = transfer.bucket_count(max(1, idx.size))
+    base_cut, res_cut = scalars[:2]
+    ne = base_cut.size
+    g8, g_ov, v8, v_ov16, v_ov32 = transfer.byte_pack_sparse_host(idx, vals)
+    gcap = transfer.overflow_bucket(max(1, g_ov.size))
+    vcap = transfer.overflow_bucket(max(1, v_ov16.size))
+    wcap = transfer.overflow_bucket(max(1, v_ov32.size))
+    bytes_u8 = np.zeros(2 * cap + 2 * vcap, np.uint8)
+    bytes_u8[:g8.size] = g8
+    bytes_u8[cap:cap + v8.size] = v8
+    bytes_u8[2 * cap:2 * cap + 2 * v_ov16.size] = (
+        v_ov16.astype("<u2").view(np.uint8))
+    ints = np.zeros(gcap + wcap + 2 * ne + 1, np.int32)
+    ints[:g_ov.size] = g_ov
+    ints[gcap:gcap + v_ov32.size] = v_ov32
+    ints[gcap + wcap:gcap + wcap + ne] = base_cut
+    ints[gcap + wcap + ne:gcap + wcap + 2 * ne] = res_cut
+    ints[gcap + wcap + 2 * ne] = idx.size
+    return kernels.decode_batch_sparse_bytes(
+        _put(bytes_u8, device), _put(ints, device),
+        _put(_floats(scalars), device), cap=cap, gcap=gcap, vcap=vcap,
+        wcap=wcap, **kw)
+
+
+def _padded_vals(vals: np.ndarray, cap: int) -> np.ndarray:
+    """The values as int16 when they fit (else int32), zero-padded to cap."""
+    as16 = bool(np.abs(vals).max() < (1 << 15)) if vals.size else True
+    out = np.zeros(cap, np.int16 if as16 else np.int32)
+    out[:vals.size] = vals
+    return out
+
+
+def _upload_bitmap(idx, vals, scalars, device, kw):
+    """Packed significance bitmap of the whole coefficient space plus the
+    values (reference codec.py:2002-2012)."""
+    b, d0, hp, wp = kw["grid_shape"]
+    sigb = np.zeros(2 * b * d0 * hp * wp, np.uint8)
+    sigb[idx] = 1
+    cap = transfer.bucket_count(max(1, idx.size))
+    return kernels.decode_batch_sparse_bitmap(
+        _put(np.packbits(sigb), device), _put(_padded_vals(vals, cap), device),
+        *(_put(a, device) for a in scalars), **kw)
+
+
+def _upload_index(idx, vals, scalars, device, kw):
+    """The int32 index vector and the values (int16 where they fit), one
+    copy each, and one scatter on the device."""
+    return kernels.decode_batch_sparse(
+        _put(idx.astype(np.int32), device).to(torch.int64),
+        _put(_padded_vals(vals, vals.size), device),
+        *(_put(a, device) for a in scalars), **kw)
+
+
+_UPLOADS = {"rice": _upload_rice, "nibble": _upload_nibble,
+            "bytes": _upload_bytes, "bitmap": _upload_bitmap,
+            "index": _upload_index}
 
 
 def _decode_streams(streams: List[bytes], device) -> np.ndarray:
@@ -1425,6 +1815,7 @@ def _finish_host(out, const_mask, const_val, nan_masks) -> np.ndarray:
     """Fetch a decoded batch and finish it on the host: constant chunks
     filled, NaNs restored."""
     out = out.cpu().numpy()
+    transfer.count_down(out.nbytes)
     if const_mask.any():
         out[const_mask] = const_val[const_mask, None, None, None]
     return _apply_nan_masks_host(out, nan_masks)
@@ -1446,7 +1837,7 @@ def decode(buf: bytes, device="cuda") -> np.ndarray:
     if buf[:4] in (b"EBCC", b"EBCK"):
         raise _not_ported("reference-format (EBCC/EBCK) streams",
                           "5, surfaces")
-    if _native_routed("decode"):
+    if _native_routed("decode", dev):
         header, _, _ = stream.split_frame_stream(buf)
         return native.native_decode(buf).reshape(
             header.n_frames, header.height, header.width)
@@ -1537,7 +1928,7 @@ def roundtrip_frames_device(x, config: CodecConfig,
 
     starts = list(range(0, b, max_batch))
     slices = [x[s:s + max_batch] for s in starts]
-    run = lambda sl: _encode_to_host(_on_device(sl, dev), internal, opts)
+    run = lambda sl: _encode_to_host(sl, internal, opts, dev)
 
     def post_batch(i, out_np, count):
         """Assemble slice i's streams, then start its device decode."""
@@ -1664,7 +2055,7 @@ def encode_chunked(data: np.ndarray, config: CodecConfig,
     as its own stream, ``max_batch`` chunks per device batch (uploaded one
     batch at a time).  The bytes do not depend on ``max_batch``."""
     dev = resolve_device(device)
-    routed = _native_routed("encode")
+    routed = _native_routed("encode", dev, opts)
     set_level_from_env()
     opts = opts or EncodeOptions.from_env()
     chunks, header = _container_chunks(data, config)
@@ -1772,7 +2163,7 @@ def decode_chunked(buf: bytes, max_batch: int = DEFAULT_MAX_BATCH,
     dev = resolve_device(device)
     if buf[:4] != stream.MAGIC_CHUNKED:
         return decode(buf, device=dev)
-    routed = _native_routed("decode")
+    routed = _native_routed("decode", dev)
     header, chunk_streams = stream.iter_chunked(buf)
     counts = _container_grid(header)
     if routed:
@@ -1815,7 +2206,7 @@ def decode_chunked_region(buf: bytes, region,
     dev = resolve_device(device)
     if buf[:4] != stream.MAGIC_CHUNKED:
         raise stream.StreamError("region decode needs an ETPK container")
-    routed = _native_routed("decode")
+    routed = _native_routed("decode", dev)
     header, chunk_streams = stream.iter_chunked(buf)
     counts = _container_grid(header)
     bounds = _region_bounds(region, header.dims)

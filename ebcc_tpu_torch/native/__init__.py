@@ -2,13 +2,15 @@
 
 The port's counterpart of ``ebcc_tpu/native/__init__.py``, with the same
 names and signatures: the CAB coders (entropy backends 2 and 4), the
-sparse packer and unpacker of the plane payloads, and the whole host codec
+sparse packer and unpacker of the plane payloads, the Rice coders of the
+exchange (``rice_decode``, ``rice_decode_gaps_classed``,
+``rice_decode_classed``, ``rice_block_pack``), and the whole host codec
 (``native_encode``, ``native_encode_chunked``, ``native_decode``) that
 ``EBCC_ENCODE_BACKEND`` / ``EBCC_DECODE_BACKEND`` = ``native`` route to.
 
 Two libraries, built by :mod:`ebcc_tpu_torch.ops._build` at first use:
-``libebcc_host.so`` (the coders, the packer and the unpacker; no
-dependency) and ``libebcc_native_codec.so`` (the host codec; links zstd,
+``libebcc_host.so`` (the coders, the packer, the unpacker and the Rice
+coders; no dependency) and ``libebcc_native_codec.so`` (the host codec; links zstd,
 so only native routing needs it).  A library that cannot be built raises
 ``RuntimeError``; nothing falls back.  ctypes releases the GIL around each
 call, so a thread pool runs the unpacker in parallel.
@@ -27,6 +29,9 @@ _U8P = ctypes.POINTER(ctypes.c_ubyte)
 _I32 = np.ctypeslib.ndpointer(ctypes.c_int32, flags="C_CONTIGUOUS")
 _U8 = np.ctypeslib.ndpointer(ctypes.c_ubyte, flags="C_CONTIGUOUS")
 _F32 = np.ctypeslib.ndpointer(ctypes.c_float, flags="C_CONTIGUOUS")
+_U32 = np.ctypeslib.ndpointer(ctypes.c_uint32, flags="C_CONTIGUOUS")
+_U16 = np.ctypeslib.ndpointer(ctypes.c_uint16, flags="C_CONTIGUOUS")
+_I64 = np.ctypeslib.ndpointer(ctypes.c_int64, flags="C_CONTIGUOUS")
 _COMPRESS_ARGS = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                   ctypes.POINTER(_U8P)]
@@ -76,6 +81,20 @@ def _host():
     lib.etpu_sparse_to_planes.argtypes = [
         _I32, _I32, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _U8]
+    lib.etpu_rice_decode.restype = ctypes.c_size_t
+    lib.etpu_rice_decode.argtypes = [_U32, ctypes.c_size_t, ctypes.c_size_t,
+                                     _I32]
+    lib.etpu_rice_decode_gaps_classed.restype = ctypes.c_size_t
+    lib.etpu_rice_decode_gaps_classed.argtypes = [
+        _U32, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+        _U8, _I32]
+    lib.etpu_rice_decode_classed.restype = ctypes.c_size_t
+    lib.etpu_rice_decode_classed.argtypes = [
+        _U32, ctypes.c_size_t, ctypes.c_size_t, _U8, _U8, _I32]
+    lib.etpu_rice_block_pack.restype = ctypes.c_size_t
+    lib.etpu_rice_block_pack.argtypes = [
+        _I64, _I32, ctypes.c_size_t, ctypes.c_int, _U32, _U16, _U16, _U8,
+        _I32]
     # The coders return buffers from malloc; this library has no etpu_free.
     libc = ctypes.CDLL(ctypes.util.find_library("c"))
     libc.free.argtypes = [ctypes.c_void_p]
@@ -83,6 +102,12 @@ def _host():
     _libc_free = libc.free
     _host_lib = lib
     return lib
+
+
+def load_host():
+    """``libebcc_host.so``, built and bound on first use (``RuntimeError``
+    when it cannot be built)."""
+    return _host()
 
 
 def load_codec():
@@ -253,3 +278,66 @@ def sparse_to_planes(pos: np.ndarray, vals: np.ndarray, shift: int,
                                  payload) != 0:
         raise ValueError("sparse_to_planes: bad geometry")
     return payload.tobytes()
+
+
+def rice_decode(words: np.ndarray, nnz: int) -> np.ndarray:
+    """Decode a device-packed Rice value stream (``transfer.rice_pack``)."""
+    lib = _host()
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    out = np.empty(nnz, np.int32)
+    if lib.etpu_rice_decode(words, words.size, nnz, out) != nnz:
+        raise ValueError("corrupt rice exchange payload")
+    return out
+
+
+def rice_decode_gaps_classed(words: np.ndarray, nnz: int, hp: int, wp: int,
+                             ks: np.ndarray) -> np.ndarray:
+    """Decode the previous-position-classed gap stream straight to sorted
+    positions (``transfer.rice_pack_pair`` with ``a_cls``)."""
+    lib = _host()
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    ks = np.ascontiguousarray(ks, dtype=np.uint8)
+    out = np.empty(nnz, np.int32)
+    if lib.etpu_rice_decode_gaps_classed(words, words.size, nnz, hp, wp, ks,
+                                         out) != nnz:
+        raise ValueError("corrupt classed gap exchange payload")
+    return out
+
+
+def rice_decode_classed(words: np.ndarray, nnz: int, cls: np.ndarray,
+                        ks: np.ndarray) -> np.ndarray:
+    """Decode the subband-classed Rice value stream: element i uses Rice
+    parameter ks[cls[i]] (``transfer.rice_pack_pair`` with ``b_cls``)."""
+    lib = _host()
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    cls = np.ascontiguousarray(cls, dtype=np.uint8)
+    ks = np.ascontiguousarray(ks, dtype=np.uint8)
+    out = np.empty(nnz, np.int32)
+    if lib.etpu_rice_decode_classed(words, words.size, nnz, cls, ks,
+                                    out) != nnz:
+        raise ValueError("corrupt classed rice exchange payload")
+    return out
+
+
+def rice_block_pack(idx: np.ndarray, vals: np.ndarray, block: int = 128):
+    """Blocked-Rice packer of the decode-direction upload (the C twin of
+    ``transfer.rice_block_pack_host``, same outputs; it releases the GIL)
+    -> (words, lens_g, lens_v, k_packed, base_pos, n_blocks)."""
+    lib = _host()
+    idx = np.ascontiguousarray(idx, dtype=np.int64)
+    vals = np.ascontiguousarray(vals, dtype=np.int32)
+    n = int(idx.size)
+    nb = max(1, -(-n // block))
+    words = np.empty((104 * max(n, 1)) // 32 + 4, np.uint32)
+    lens_g = np.empty(nb, np.uint16)
+    lens_v = np.empty(nb, np.uint16)
+    k_packed = np.empty(nb, np.uint8)
+    base_pos = np.empty(nb, np.int32)
+    used = lib.etpu_rice_block_pack(idx, vals, n, block, words, lens_g,
+                                    lens_v, k_packed, base_pos)
+    if used == 0:
+        raise ValueError("rice_block_pack failed")
+    # +3 zero words: the device reads a 3-word window at the last code's
+    # offset (the window's first word is clipped to nw - 3).
+    words[used:used + 3] = 0
+    return words[:used + 3].copy(), lens_g, lens_v, k_packed, base_pos, nb

@@ -7,7 +7,8 @@ At first use each library is compiled into ``ebcc_tpu_torch/csrc/build/``
   (:func:`load`);
 * the host C++ of ``csrc/host/`` (:data:`HOST_LIBS`, :func:`load_host`)
   with ``c++`` and the reference's release flags: ``libebcc_host.so``
-  (the CAB coders and the sparse packer/unpacker, no dependency) and
+  (the CAB coders, the sparse packer/unpacker and the Rice coders of the
+  exchange, no dependency) and
   ``libebcc_native_codec.so`` (the whole host codec, for native routing;
   links ``-lzstd``).
 
@@ -38,7 +39,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 CXX_FLAGS = ["-std=c++17", "-O3", "-ffp-contract=off", "-shared", "-fPIC"]
 # name -> (sources under csrc/host/ compiled, headers they include, libs).
 HOST_LIBS = {
-    "ebcc_host": (["cab_coder.cc", "sparse_unpack.cc"], [], []),
+    "ebcc_host": (["cab_coder.cc", "sparse_unpack.cc", "rice_decode.cc",
+                   "rice_block_pack.cc"], [], []),
     "ebcc_native_codec": (["etpu_codec.cc", "cab_coder.cc"],
                           ["etpu_codec.h"], ["-lzstd"]),
 }

@@ -163,13 +163,14 @@ def test_truncated_stream_raises(streams):
 @pytest.mark.parametrize("change", [dict(u16_upload=True)],
                          ids=["u16_upload"])
 def test_modes_not_ported_raise(change):
-    """What the port still lacks of the encode options, the u16 upload,
-    raises naming its ROADMAP item."""
-    x = np.ones((2, 64, 64), np.float32)
+    """The encode option the port once lacked, the u16 upload, now runs:
+    the stream decodes within the bound of the float input (the name is
+    kept from when it raised)."""
+    x = _smooth_frames(n=2, h=64, w=64)
     _, cfg = _configs(x.shape)
     opts = et.EncodeOptions(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        et.encode(x, cfg, opts, device="cpu")
+    blob = et.encode(x, cfg, opts, device="cpu")
+    assert np.abs(et.decode(blob, device="cpu") - x).max() <= ERROR
 
 
 @pytest.mark.parametrize("change", [

@@ -20,6 +20,9 @@ sparse packer and unpacker, native routing) against the JAX package's
   ``build_partial_payload`` bytes at every prefix the bisection visits.
 * Native routing writes the JAX package's native encoder's bytes, and
   raises ``RuntimeError`` when the host codec cannot be built.
+* The Rice coders of the exchange (``rice_block_pack``, ``rice_decode``,
+  ``rice_decode_gaps_classed``, ``rice_decode_classed``) give the JAX
+  package's outputs.
 
 Every port call passes ``device="cpu"``.  The ``cuda``-marked tests run
 the packer and unpacker checks on the card's encodes and skip without one.
@@ -421,6 +424,8 @@ def test_host_build_is_the_port_own():
                          2, 1, 8, 64, 2)
     port_csrc = _build.CSRC
     assert port_csrc.endswith("ebcc_tpu_torch/csrc")
+    assert {"cab_coder.cc", "sparse_unpack.cc", "rice_decode.cc",
+            "rice_block_pack.cc"} <= set(_build.HOST_LIBS["ebcc_host"][0])
     for name, (srcs, headers, _) in _build.HOST_LIBS.items():
         for f in srcs + headers:
             src = f"{port_csrc}/host/{f}"
@@ -431,6 +436,46 @@ def test_host_build_is_the_port_own():
                 assert a.read().split("\n", 2)[2] == b.read()
     loaded = _build._LIBS["ebcc_host"]._name
     assert loaded.startswith(_build.BUILD_DIR)
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 5000])
+@pytest.mark.parametrize("scale", [300, 1 << 28], ids=["small", "escape"])
+def test_rice_coders_equal_reference(n, scale):
+    """The port's copies of the exchange's Rice coders give the JAX
+    package's native outputs: the blocked packer's arrays, and the readers'
+    pairs from the same word streams."""
+    rng = np.random.default_rng([n, scale])
+    idx = np.sort(rng.choice(1 << 24, n, replace=False)).astype(np.int64)
+    vals = (rng.integers(1, scale + 1, n)
+            * rng.choice([-1, 1], n)).astype(np.int32)
+    for a, b in zip(tnative.rice_block_pack(idx, vals),
+                    jnative.rice_block_pack(idx, vals)):
+        np.testing.assert_array_equal(a, b)
+    from ebcc_tpu_torch.core import transfer as tt
+    cap = tt.bucket_count(max(n, 1))
+    v = np.zeros(cap, np.int32)
+    v[:n] = vals
+    words = tt.rice_pack(torch.from_numpy(v), n, cap=cap).numpy().view(
+        np.uint32)
+    np.testing.assert_array_equal(tnative.rice_decode(words, n),
+                                  jnative.rice_decode(words, n))
+    hp, wp = 64, 64
+    flat = np.zeros(4 * hp * wp, np.int32)
+    pos = np.sort(rng.choice(flat.size, min(n, flat.size), replace=False))
+    flat[pos] = vals[:pos.size]
+    tw, need = tt.compact_rice_exchange(
+        torch.from_numpy(flat), torch.from_numpy(np.packbits(flat != 0)),
+        cap=tt.bucket_count(max(pos.size, 1)), hw=(hp, wp))
+    ga, vb = tt.split_rice_pair(tw.numpy().view(np.uint32)[:int(need)],
+                                pos.size)
+    ks_g, ks_v = tt.unpack_rice_ks(ga[1]), tt.unpack_rice_ks(vb[1])
+    got = tnative.rice_decode_gaps_classed(ga, pos.size, hp, wp, ks_g)
+    np.testing.assert_array_equal(
+        got, jnative.rice_decode_gaps_classed(ga, pos.size, hp, wp, ks_g))
+    cls = tt.coeff_class_host(got, hp, wp)
+    np.testing.assert_array_equal(
+        tnative.rice_decode_classed(vb, pos.size, cls, ks_v),
+        jnative.rice_decode_classed(vb, pos.size, cls, ks_v))
 
 
 # ---------------------------------------------------------------------------

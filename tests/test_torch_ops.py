@@ -159,6 +159,9 @@ def test_port_imports_neither_jax_nor_ebcc_tpu():
     assert len(sources) > 10
     for sub in ("native", "parallel", "api"):
         assert PORT_ROOT / sub / "__init__.py" in sources
+    for mod in ("core/transfer.py", "core/routing.py",
+                "ops/exchange_hopper.py"):
+        assert PORT_ROOT / mod in sources
     bad = []
     for path in sources:
         for mod in _imports(path):

@@ -1,0 +1,515 @@
+"""The port's host<->device exchange against the JAX package's, on the CPU.
+
+``ebcc_tpu_torch.core.transfer`` against ``ebcc_tpu.core.transfer``: the
+host packers and size ladders give the same arrays, the device packers the
+same words word for word, the plain unpackers the same (position, value)
+pairs, on the same seeded inputs (n in {0, 1, 127, 128, 129, 5000}, at a
+small scale and at one that forces every escape).  The port's native Rice
+coders invert its device packers.  Through the codec: streams are
+byte-identical across the encode forms and decodes bit-equal across the
+five upload forms in MAX_ERROR, rate and temporal mode, with
+``LINK_STATS`` showing the Rice forms moving fewer bytes; the u16 upload
+against the JAX package's; the routing decisions against the JAX
+package's.  The JAX package's encode runs once (the u16 stream).  Cases
+marked ``cuda`` hold the X1 kernel against its plain version on the card.
+"""
+
+import dataclasses
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import ebcc_tpu
+from ebcc_tpu.core import routing as jrouting
+from ebcc_tpu.core import transfer as jt
+
+import ebcc_tpu_torch as et
+from ebcc_tpu_torch import native as tnative
+from ebcc_tpu_torch.core import codec as tcodec
+from ebcc_tpu_torch.core import routing as trouting
+from ebcc_tpu_torch.core import stream as tstream
+from ebcc_tpu_torch.core import transfer as tt
+
+torch.set_num_threads(2)
+
+NS = [0, 1, 127, 128, 129, 5000]
+SCALES = {"small": 300, "escape": 1 << 28}
+CASES = [(n, s) for n in NS for s in SCALES]
+IDS = [f"n{n}-{s}" for n, s in CASES]
+GRID = (2, 2, 1, 64, 64)           # (layers, B, D0, Hp, Wp)
+# One capacity for every case (cap >= n; entries past n are masked), so
+# the JAX package's programs compile once per variant.
+CAP = jt.bucket_count(max(NS))
+
+
+def pairs(n, scale, space=1 << 24, seed=0):
+    """n sorted distinct positions in [0, space) and signed values of
+    magnitude 1..scale, from a seed."""
+    rng = np.random.default_rng([seed, n, scale])
+    idx = np.sort(rng.choice(space, n, replace=False)).astype(np.int64)
+    vals = (rng.integers(1, scale + 1, n)
+            * rng.choice([-1, 1], n)).astype(np.int32)
+    return idx, vals
+
+
+def tiered_pairs(n, scale, seed=0):
+    """n pairs whose gaps and zigzag values mostly fit a nibble, with
+    every 40th, 400th and 1000th reaching the u8, u16 and int32 tiers
+    (values up to ``scale`` there)."""
+    rng = np.random.default_rng([seed, n])
+    gaps = rng.integers(0, 8, n)
+    vals = rng.integers(-7, 8, n)
+    for step, big in ((40, 200), (400, 60000), (1000, scale)):
+        gaps[::step] = big
+        vals[::step] = min(big, scale) // 2
+    return np.cumsum(gaps + 1) - 1, vals.astype(np.int32)
+
+
+def grid_values(n, scale):
+    """A flat int32 coefficient vector over GRID with min(n, size)
+    significant entries, and its packed significance."""
+    size = int(np.prod(GRID))
+    idx, vals = pairs(min(n, size), scale, space=size)
+    flat = np.zeros(size, np.int32)
+    flat[idx] = vals
+    return flat, np.packbits(flat != 0)
+
+
+def as_u32(t):
+    return t.numpy().view(np.uint32)
+
+
+def t_of(a):
+    """numpy -> tensor, uint16 as its int16 bits (as the codec uploads)."""
+    return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a)
+
+
+def test_ladders_equal_reference():
+    for n in list(range(0, 300)) + list(range(300, 200000, 977)):
+        assert tt.bucket_count(n) == jt.bucket_count(n)
+        assert tt.rice_block_bucket(n) == jt.rice_block_bucket(n)
+        assert tt.overflow_bucket(n) == jt.overflow_bucket(n)
+        for leg in ("gap", "val"):
+            assert tt.nib_tier_caps(n, leg) == jt.nib_tier_caps(n, leg)
+    for name in ("RICE_ESC", "RICE_HEADER_WORDS", "RICE_PAIR_HEADER_WORDS",
+                 "RICE_NUM_CLASSES", "COMPACT_CAP_LIMIT", "RICE_BLOCK",
+                 "NIB_ESC", "BYTE_ESC"):
+        assert getattr(tt, name) == getattr(jt, name), name
+
+
+@pytest.mark.parametrize("n,scale", CASES, ids=IDS)
+def test_host_packers_equal_reference(n, scale):
+    idx, vals = pairs(n, SCALES[scale])
+    cap = jt.bucket_count(max(n, 1))
+    for a, b in zip(tt.byte_pack_sparse_host(idx, vals),
+                    jt.byte_pack_sparse_host(idx, vals)):
+        np.testing.assert_array_equal(a, b)
+    got, want = (tt.nibble_pack_sparse_host(idx, vals),
+                 jt.nibble_pack_sparse_host(idx, vals))
+    for leg, gl, wl in (("gap", got[0], want[0]), ("val", got[1], want[1])):
+        for a, b in zip(gl, wl):
+            np.testing.assert_array_equal(a, b)
+        assert tt.nibble_fits(gl, cap, leg) == jt.nibble_fits(wl, cap, leg)
+        np.testing.assert_array_equal(tt.pack_nibbles(gl[0], cap),
+                                      jt.pack_nibbles(wl[0], cap))
+    for a, b in zip(tt.rice_block_pack_host(idx, vals),
+                    jt.rice_block_pack_host(idx, vals)):
+        np.testing.assert_array_equal(a, b)
+    flat, sig = grid_values(n, SCALES[scale])
+    np.testing.assert_array_equal(tt.host_bitmap_positions(sig),
+                                  jt.host_bitmap_positions(sig))
+    pos = idx[idx < int(np.prod(GRID))].astype(np.int32)
+    np.testing.assert_array_equal(tt.pad_index(pos, cap, -1),
+                                  jt.pad_index(pos, cap, -1))
+    np.testing.assert_array_equal(tt.coeff_class_host(pos, 64, 64),
+                                  jt.coeff_class_host(pos, 64, 64))
+    word = int(np.random.default_rng(n).integers(0, 1 << 32))
+    np.testing.assert_array_equal(tt.unpack_rice_ks(word),
+                                  jt.unpack_rice_ks(word))
+
+
+@pytest.mark.parametrize("n,scale", CASES, ids=IDS)
+def test_device_packers_equal_reference(n, scale):
+    """rice_pack, rice_pack_pair (classed and not) and
+    compact_rice_exchange (classed and not): words and words_needed word
+    for word; the pack/unpack of the bitmap both ways."""
+    _, vals = pairs(n, SCALES[scale])
+    cap = CAP
+    v = np.zeros(cap, np.int32)
+    v[:n] = vals
+    a = np.zeros(cap, np.int32)
+    a[:n] = np.abs(vals) // 3
+    np.testing.assert_array_equal(
+        as_u32(tt.rice_pack(torch.from_numpy(v), n, cap=cap)),
+        np.asarray(jt.rice_pack(jnp.asarray(v), np.int32(n), cap=cap)))
+    cls = (np.arange(cap) * 7 % 8).astype(np.int32)
+    for c in (None, cls):
+        tc = None if c is None else torch.from_numpy(c)
+        jc = None if c is None else jnp.asarray(c)
+        tw, tn = tt.rice_pack_pair(torch.from_numpy(a), torch.from_numpy(v),
+                                   n, cap=cap, a_cls=tc, b_cls=tc)
+        jw, jn = jt.rice_pack_pair(jnp.asarray(a), jnp.asarray(v),
+                                   np.int32(n), cap=cap, a_cls=jc, b_cls=jc)
+        np.testing.assert_array_equal(as_u32(tw), np.asarray(jw))
+        assert int(tn) == int(jn)
+
+    flat, sig = grid_values(n, SCALES[scale])
+    bits = flat.reshape(*GRID[:-1], -1) != 0
+    sig_t = tt.pack_bitmap(torch.from_numpy(bits))
+    np.testing.assert_array_equal(
+        sig_t.numpy(), np.asarray(jt.pack_bitmap(jnp.asarray(bits))))
+    np.testing.assert_array_equal(sig_t.numpy().reshape(-1), sig)
+    np.testing.assert_array_equal(
+        tt.unpack_bitmap(torch.from_numpy(sig), n=flat.size).numpy(),
+        np.asarray(jt.unpack_bitmap(jnp.asarray(sig), n=flat.size)))
+    cap2 = CAP
+    assert int((flat != 0).sum()) <= cap2
+    for hw in (None, GRID[-2:]):
+        tw, tn = tt.compact_rice_exchange(torch.from_numpy(flat),
+                                          torch.from_numpy(sig), cap=cap2,
+                                          hw=hw)
+        jw, jn = jt.compact_rice_exchange(jnp.asarray(flat), jnp.asarray(sig),
+                                          cap=cap2, hw=hw)
+        np.testing.assert_array_equal(as_u32(tw), np.asarray(jw))
+        assert int(tn) == int(jn)
+
+
+@pytest.mark.parametrize("n,scale", CASES, ids=IDS)
+def test_native_rice_coders_invert_device_packers(n, scale):
+    """The port's C++ Rice readers expand the port's device words; its
+    blocked packer writes the numpy twins' arrays (the JAX package's and
+    the port's)."""
+    idx, vals = pairs(n, SCALES[scale])
+    got = tnative.rice_block_pack(idx, vals)
+    want = tt.rice_block_pack_host(idx, vals)
+    np.testing.assert_array_equal(got[0][:want[0].size], want[0])
+    assert not got[0][want[0].size:].any()
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(a, b)
+    cap = tt.bucket_count(max(n, 1))
+    v = np.zeros(cap, np.int32)
+    v[:n] = vals
+    words = as_u32(tt.rice_pack(torch.from_numpy(v), n, cap=cap))
+    np.testing.assert_array_equal(tnative.rice_decode(words, n), vals)
+
+    flat, sig = grid_values(n, SCALES[scale])
+    nnz = int((flat != 0).sum())
+    hp, wp = GRID[-2:]
+    tw, need = tt.compact_rice_exchange(
+        torch.from_numpy(flat), torch.from_numpy(sig),
+        cap=tt.bucket_count(max(nnz, 1)), hw=(hp, wp))
+    head = as_u32(tw)[:int(need)]
+    ga, vb = tt.split_rice_pair(head, nnz)
+    pos = tnative.rice_decode_gaps_classed(ga, nnz, hp, wp,
+                                           tt.unpack_rice_ks(ga[1]))
+    np.testing.assert_array_equal(pos, np.flatnonzero(flat))
+    got_v = tnative.rice_decode_classed(
+        vb, nnz, tt.coeff_class_host(pos, hp, wp), tt.unpack_rice_ks(vb[1]))
+    np.testing.assert_array_equal(got_v, flat[pos])
+
+
+def _pad(a, n, dtype):
+    out = np.zeros(n, dtype)
+    out[:a.size] = a
+    return out
+
+
+@pytest.mark.parametrize("n,scale", CASES, ids=IDS)
+def test_plain_unpackers_equal_reference(n, scale):
+    """rice_block_unpack (the plain twin of X1), byte_unpack_sparse and
+    nibble_unpack_sparse against the JAX package's, on the padded buffers
+    the codec uploads; each returns the packed pairs."""
+    idx, vals = pairs(n, SCALES[scale])
+    w, lg, lv, kp, bp, nb = jt.rice_block_pack_host(idx, vals)
+    nbk, nwk = jt.rice_block_bucket(nb), jt.rice_block_bucket(w.size)
+    up = (_pad(w, nwk, np.uint32), _pad(lg, nbk, np.uint16),
+          _pad(lv, nbk, np.uint16), _pad(kp, nbk, np.uint8),
+          _pad(bp, nbk, np.int32))
+    ti, tv = tt.rice_block_unpack(
+        torch.from_numpy(up[0].view(np.int32)), *map(t_of, up[1:]), n,
+        n_blocks=nbk)
+    ji, jv = jax.jit(jt.rice_block_unpack, static_argnames=("n_blocks",))(
+        *map(jnp.asarray, up), np.int32(n), n_blocks=nbk)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy()[:n], np.asarray(jv)[:n])
+    np.testing.assert_array_equal(ti.numpy()[:n], idx)
+    np.testing.assert_array_equal(tv.numpy()[:n], vals)
+
+    cap = jt.bucket_count(max(n, 1))
+    g8, g_ov, v8, v16, v32 = jt.byte_pack_sparse_host(idx, vals)
+    up = (_pad(g8, cap, np.uint8),
+          _pad(g_ov, jt.overflow_bucket(max(1, g_ov.size)), np.int32),
+          _pad(v8, cap, np.uint8),
+          _pad(v16, jt.overflow_bucket(max(1, v16.size)), np.uint16),
+          _pad(v32, jt.overflow_bucket(max(1, v32.size)), np.int32))
+    ti, tv = tt.byte_unpack_sparse(*map(t_of, up), n)
+    ji, jv = jax.jit(jt.byte_unpack_sparse)(*map(jnp.asarray, up),
+                                            np.int32(n))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy()[:n], np.asarray(jv)[:n])
+    np.testing.assert_array_equal(tv.numpy()[:n], vals)
+
+    # The nibble tiers take a batch only while its escapes fit their fixed
+    # shares of cap (else the byte form does): pairs that reach every tier.
+    idx, vals = tiered_pairs(n, SCALES[scale])
+    gt, vt = jt.nibble_pack_sparse_host(idx, vals)
+    assert jt.nibble_fits(gt, cap, "gap") and jt.nibble_fits(vt, cap, "val")
+
+    def tiers(t, leg):
+        c8, c16, c32 = jt.nib_tier_caps(cap, leg)
+        return (jt.pack_nibbles(t[0], cap), _pad(t[1], c8, np.uint8),
+                _pad(t[2], c16, np.uint16), _pad(t[3], c32, np.int32))
+
+    g, v = tiers(gt, "gap"), tiers(vt, "val")
+    ti, tv = tt.nibble_unpack_sparse(list(map(t_of, g)), list(map(t_of, v)), n)
+    ji, jv = jax.jit(jt.nibble_unpack_sparse)(
+        list(map(jnp.asarray, g)), list(map(jnp.asarray, v)), np.int32(n))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy()[:n], np.asarray(jv)[:n])
+    np.testing.assert_array_equal(tv.numpy()[:n], vals)
+
+
+# ---------------------------------------------------------------------------
+# Through the codec
+# ---------------------------------------------------------------------------
+
+def smooth_frames(n, h=64, w=128, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = [20 * np.sin(yy / 9 + i) * np.cos(xx / 13)
+           + 0.3 * rng.normal(size=(h, w)) for i in range(n)]
+    return np.stack(out).astype(np.float32)
+
+
+MODES = {
+    "max_error": (dict(residual_mode=et.RESIDUAL_MAX_ERROR, error=0.5), 1),
+    "rate": (dict(base_cr=8), 1),
+    "temporal": (dict(residual_mode=et.RESIDUAL_MAX_ERROR, error=0.05,
+                      temporal=True), 2),
+}
+
+
+def mode_setup(mode):
+    kw, t = MODES[mode]
+    x = smooth_frames(4).reshape(-1, t, 64, 128)
+    cfg = et.CodecConfig(dims=(4, 64, 128), chunk_dims=(t, 64, 128),
+                         zstd_level=3, **kw)
+    return x, cfg
+
+
+def link_bytes(fn):
+    tt.reset_link_stats()
+    out = fn()
+    return out, dict(tt.LINK_STATS)
+
+
+@pytest.fixture(scope="module")
+def mode_streams():
+    """mode -> (frames, config, default-form streams)."""
+    out = {}
+    for mode in MODES:
+        x, cfg = mode_setup(mode)
+        out[mode] = (x, cfg, et.encode_frames_device(x, cfg, max_batch=2,
+                                                     device="cpu"))
+    return out
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_encode_forms_byte_identical(monkeypatch, mode_streams, mode):
+    """The compact Rice fetch, its hinted single-copy form (a second call
+    of the same shape) and the ``torch.nonzero`` fetch
+    (``EBCC_NO_RICE=1``) write the same streams; the Rice forms bring
+    fewer bytes down."""
+    x, cfg, _ = mode_streams[mode]
+    tcodec._EXCH_HINTS.clear()
+    enc = lambda: et.encode_frames_device(x, cfg, max_batch=2, device="cpu")
+    s_rice, l_rice = link_bytes(enc)
+    assert tcodec._EXCH_HINTS                 # the second call is hinted
+    s_fused, l_fused = link_bytes(enc)
+    monkeypatch.setenv("EBCC_NO_RICE", "1")
+    s_plain, l_plain = link_bytes(enc)
+    assert s_rice == s_fused == s_plain == mode_streams[mode][2]
+    assert l_rice["up"] == l_fused["up"] == l_plain["up"] == x.nbytes
+    assert l_rice["down"] < l_plain["down"]
+    assert l_fused["down"] < l_plain["down"]
+
+
+FORMS = {"rice": ["rice"], "nibble": ["nibble", "bytes"], "bytes": ["bytes"],
+         "bitmap": ["bitmap"], "index": ["index"]}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_decode_forms_bit_equal(monkeypatch, mode_streams, mode):
+    """Each upload form of the decode rebuilds the index form's batch bit
+    for bit, within the bound; the Rice form uploads fewer bytes than the
+    index form; the default chain starts with the Rice form."""
+    x, cfg, streams = mode_streams[mode]
+    assert tcodec._upload_chain(1000, 1 << 20)[0] == "rice"
+    got, up, taken = {}, {}, []
+    real_nibble = tcodec._UPLOADS["nibble"]
+
+    def nibble(*a):
+        out = real_nibble(*a)
+        taken.append(out is not None)
+        return out
+
+    monkeypatch.setitem(tcodec._UPLOADS, "nibble", nibble)
+    for form, chain in FORMS.items():
+        monkeypatch.setattr(tcodec, "_upload_chain",
+                            lambda nnz, s, chain=chain: list(chain))
+        got[form], stats = link_bytes(
+            lambda: et.decode_frames_device(streams, device="cpu"))
+        up[form] = stats["up"]
+    for form, out in got.items():
+        assert torch.equal(out, got["index"]), form
+    assert up["rice"] < up["index"]
+    if mode == "max_error":
+        assert all(taken)                  # the nibble tiers took these
+    if cfg.residual_mode != et.RESIDUAL_NONE:
+        err = np.abs(got["rice"].numpy() - x).max()
+        assert err <= cfg.error
+
+
+# ---------------------------------------------------------------------------
+# The u16 upload
+# ---------------------------------------------------------------------------
+
+U16_SHAPE = (2, 64, 128)
+
+
+@pytest.fixture(scope="module")
+def u16_streams():
+    """(frames, port config, JAX u16 stream, port u16 stream, port float
+    stream, the u16 encode's link bytes).  The module's one JAX encode."""
+    x = smooth_frames(2)
+    ref = ebcc_tpu.CodecConfig(dims=U16_SHAPE, base_cr=30,
+                               residual_mode=ebcc_tpu.RESIDUAL_MAX_ERROR,
+                               error=0.5, zstd_level=3)
+    cfg = et.config_from_reference(dataclasses.asdict(ref))
+    s_jax = ebcc_tpu.encode(x, ref, ebcc_tpu.EncodeOptions(u16_upload=True))
+    s_port, stats = link_bytes(lambda: et.encode(
+        x, cfg, et.EncodeOptions(u16_upload=True), device="cpu"))
+    s_float = et.encode(x, cfg, et.EncodeOptions(), device="cpu")
+    return x, cfg, s_jax, s_port, s_float, stats
+
+
+def test_u16_upload_against_reference(u16_streams):
+    x, cfg, s_jax, s_port, s_float, stats = u16_streams
+    assert stats["up"] == x.size * 2 + 8       # u16 frames + min/max
+    assert s_port != s_float
+    hj, hp = (tstream.split_frame_stream(s)[0] for s in (s_jax, s_port))
+    assert (hj.flags, hj.base_cut, hj.res_cut) == (hp.flags, hp.base_cut,
+                                                  hp.res_cut)
+    assert abs(len(s_port) - len(s_jax)) <= 0.01 * len(s_jax)
+    for s in (s_jax, s_port):
+        for out in (et.decode(s, device="cpu"), ebcc_tpu.decode(s)):
+            assert np.abs(out - x).max() <= cfg.error
+
+
+def test_u16_upload_below_gate_is_the_float_upload():
+    """A target under 32 slacks of the u16 grid keeps the float upload:
+    the same bytes on the link and the same stream."""
+    x = smooth_frames(2)
+    cfg = et.CodecConfig(dims=U16_SHAPE, residual_mode=et.RESIDUAL_MAX_ERROR,
+                         error=0.005, zstd_level=3)
+    rng_ = float(x.max() - x.min())
+    assert not tcodec._u16_upload_ok(np.float32([x.min()]),
+                                     np.float32([x.max()]), cfg)
+    assert 0.005 < 32 * rng_ / (2 * 65535.0)
+    s16, l16 = link_bytes(lambda: et.encode(
+        x, cfg, et.EncodeOptions(u16_upload=True), device="cpu"))
+    s32, l32 = link_bytes(lambda: et.encode(x, cfg, device="cpu"))
+    assert s16 == s32 and l16["up"] == l32["up"] == x.nbytes
+
+
+# ---------------------------------------------------------------------------
+# Routing
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("value", ["", "auto", "native", "host", "device",
+                                   "jax", "tpu", "accel", "bogus"])
+def test_routing_explicit_equal_reference(monkeypatch, value):
+    for kind in ("encode", "decode"):
+        monkeypatch.setenv(f"EBCC_{kind.upper()}_BACKEND", value)
+        assert trouting.explicit(kind) == jrouting.explicit(kind)
+
+
+@pytest.mark.parametrize("mbps", ["0.01", "1", "1000000"])
+@pytest.mark.parametrize("available", [True, False])
+def test_routing_choice_equal_reference(monkeypatch, mbps, available):
+    """backend_choice under a forced link rate and a forced availability of
+    the host codec decides as the JAX package's does."""
+    monkeypatch.setenv("EBCC_LINK_MBPS", mbps)
+    for kind in ("encode", "decode"):
+        monkeypatch.delenv(f"EBCC_{kind.upper()}_BACKEND", raising=False)
+    for mod in (trouting, jrouting):
+        monkeypatch.setattr(mod, "_cache", {"native_ok": available})
+    for kind in ("encode", "decode"):
+        assert (trouting.backend_choice(kind, "cpu")
+                == jrouting.backend_choice(kind))
+    assert trouting.link_mbps("cpu") == (float(mbps), float(mbps))
+
+
+def test_new_entry_points_default_to_the_card(monkeypatch):
+    for fn in (trouting.link_mbps, trouting.backend_choice):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = smooth_frames(2)
+    cfg = et.CodecConfig(dims=U16_SHAPE, residual_mode=et.RESIDUAL_MAX_ERROR,
+                         error=0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        et.encode(x, cfg, et.EncodeOptions(u16_upload=True))
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels build with nvcc)")
+    return torch.device("cuda")
+
+
+def lane_inputs(case):
+    """Blocked-Rice upload arrays of an edge case, padded as the codec pads
+    them: -> (arrays, nnz, n_blocks, s)."""
+    if case == "escape_every_block":
+        idx, vals = pairs(1024, 1 << 28)
+        vals[::128] = np.int32(-(1 << 30))
+    elif case == "k_clamp":
+        idx, vals = pairs(1024, 1 << 14)
+        vals[:] = np.int32(1 << 13)           # block means put k at 11
+    else:
+        idx, vals = pairs(int(case), 300)
+    w, lg, lv, kp, bp, nb = tt.rice_block_pack_host(idx, vals)
+    if case == "k_clamp":
+        assert ((kp >> 4) == 11).all()
+    nbk, nwk = tt.rice_block_bucket(nb), tt.rice_block_bucket(w.size)
+    up = (_pad(w, nwk, np.uint32).view(np.int32), _pad(lg, nbk, np.uint16),
+          _pad(lv, nbk, np.uint16), _pad(kp, nbk, np.uint8),
+          _pad(bp, nbk, np.int32))
+    return up, idx.size, nbk, 1 << 23
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["0", "1", "127", "128", "129", "5000",
+                                  "escape_every_block", "k_clamp"])
+def test_card_rice_lanes_equal_plain(card, case):
+    """X1 on the card: qflat bit-equal to the plain version's."""
+    from ebcc_tpu_torch.ops import exchange_hopper as xh
+    up, nnz, nbk, s = lane_inputs(case)
+    args = [t_of(a).to(card) for a in up]
+    before = xh.cuda_kernels_launched()
+    got = xh.rice_unpack_qflat(*args, nnz, n_blocks=nbk, s=s)
+    torch.cuda.synchronize()
+    assert xh.cuda_kernels_launched() - before == 1
+    want = xh.rice_unpack_qflat_plain(*[a.cpu() for a in args], nnz,
+                                      n_blocks=nbk, s=s)
+    assert torch.equal(got.cpu(), want)
