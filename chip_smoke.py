@@ -136,9 +136,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     bitmap and index uploads: bit-equal to the index form, up bytes per
     significant coefficient, the ``dec:`` stage times, the walls, the
     launches of X1 and K2; (c) X1 ``rice_unpack_qflat`` against its plain
-    version on the blocks of (b)'s first sub-batch and at nnz 0, 1, 127,
-    128, 129, an escape in every block and k at its clamp of 11, bit-equal,
-    with its device span, event and plain times and byte bound; (d) the 32
+    version, bit-equal, on the blocks of (b)'s first Rice call of each of
+    the three runs, at nnz 0, 1, 127, 128, 129, an escape in every block, k
+    at its clamp of 11, a lane ending in the stream's last 3 words, windows
+    clipped at the stream's end, 128 escapes in a block (6,656-bit lanes),
+    nnz 1024 with padded lanes, and 2^22 pairs at the compaction's cap;
+    at the three runs' calls and the cap its pairs, lanes, device span, X1
+    kernels' own time, kernels per call (the library's count, at most 3),
+    event, plain and byte-bound times; (d) the 32
     frames as a numpy array with the u16 upload: within 0.5 of the float
     originals, upload bytes per point against the float upload, K1
     launched; (e) the link probe both ways, ``backend_choice`` for encode
@@ -1762,16 +1767,16 @@ def phase_decode_forms(torch, et, dh, xh, runs, card):
     (the chain pinned to it; the nibble tiers pass a batch they cannot
     hold to the byte form, as the default chain does): bit-equal to the
     index form, up bytes per significant coefficient, the ``dec:`` stage
-    times, the wall, and the launches of X1 and K2.  Returns the
-    arguments of X1's first call on phase 3's streams (the blocks of
+    times, the wall, and the launches of X1 and K2.  Returns {run label:
+    the arguments of X1's first call on that run's streams} (the blocks of
     14c)."""
     from ebcc_tpu_torch.core import codec, transfer
-    captured = []
+    captured = {}
     real_x1 = xh.rice_unpack_qflat
+    label = None
 
     def capturing_x1(*a, **kw):
-        if not captured:
-            captured.append((a, kw))
+        captured.setdefault(label, (a, kw))
         return real_x1(*a, **kw)
 
     for label, (x, config, mb, streams) in runs.items():
@@ -1812,100 +1817,183 @@ def phase_decode_forms(torch, et, dh, xh, runs, card):
                 raise AssertionError(f"{label}: decode error {err}")
         print(f"decode {label}: every upload form bit-equal to the index "
               "form")
-    return captured[0]
+    return captured
 
 
-def lane_case(case, rng):
-    """Blocked-Rice lane arrays of an edge case, padded as the codec pads
-    them: -> (words, lens_g, lens_v, k_packed, base_pos, nnz, n_blocks)."""
+def x1_inputs(torch, idx, vals, trim=None):
+    """X1's arguments for sorted positions idx and values vals, packed by
+    the host library (``native.rice_block_pack``) and padded as the codec
+    pads them, on the card: -> (args, kwargs without s).  With ``trim``
+    the words are not padded and the last ``trim`` of them are dropped."""
+    from ebcc_tpu_torch import native
     from ebcc_tpu_torch.core import transfer
-    n = {"escape in every block": 1024, "k at its clamp": 1024}.get(case)
+    w, lg, lv, kp, bp, nb = native.rice_block_pack(idx, vals)
+    nbk = transfer.rice_block_bucket(nb)
+    nwk = transfer.rice_block_bucket(w.size) if trim is None else w.size - trim
+
+    def pad(a, size, dt, view):
+        out = np.zeros(size, dt)
+        out[:min(a.size, size)] = a[:size]
+        return torch.from_numpy(out.view(view)).cuda()
+
+    args = (pad(w, nwk, np.uint32, np.int32),
+            pad(lg, nbk, np.uint16, np.int16),
+            pad(lv, nbk, np.uint16, np.int16),
+            pad(kp, nbk, np.uint8, np.uint8),
+            pad(bp, nbk, np.int32, np.int32),
+            torch.tensor([idx.size], dtype=torch.int32).cuda())
+    return args, {"n_blocks": nbk}
+
+
+X1_S = 4 * 736 * 1440    # one layer of a MAX_ERROR or rate sub-batch
+
+
+def synthetic_pairs(n, space, scale, seed):
+    """n sorted distinct positions in [0, space) and values of magnitude
+    geometric with mean ``scale``, random signs and every 997th an escape
+    (2^28), from a seed."""
+    rng = np.random.default_rng(seed)
+    idx = np.sort(rng.choice(space, n, replace=False)).astype(np.int64)
+    vals = rng.geometric(1.0 / scale, n) * rng.choice([-1, 1], n)
+    vals[::997] = 1 << 28
+    return idx, vals.astype(np.int32)
+
+
+def lane_case(torch, case, rng):
+    """X1's arguments of an edge case, padded as the codec pads them:
+    -> (args, kwargs)."""
+    from ebcc_tpu_torch.core import transfer
+    s = 1 << 23
+    n = {"escape in every block": 1024, "k at its clamp": 1024,
+         "128 escapes in a block": 128,
+         "lane ending in the last 3 words": 3000,
+         "windows clipped at the stream's end": 3000,
+         "nnz 1024 with padded lanes": 1024,
+         "2^22 pairs at the cap": transfer.COMPACT_CAP_LIMIT}.get(case)
     n = int(case) if n is None else n
-    idx = np.sort(rng.choice(1 << 22, n, replace=False)).astype(np.int64)
-    vals = rng.integers(-300, 301, n).astype(np.int32)
+    if case == "2^22 pairs at the cap":
+        s = X1_S
+        idx, vals = synthetic_pairs(n, 2 * s, 16, seed=22)
+    elif case == "128 escapes in a block":
+        idx = (np.arange(n, dtype=np.int64) + 1) * 100000
+        vals = (rng.integers(1 << 20, 1 << 30, n)
+                * rng.choice([-1, 1], n)).astype(np.int32)
+    else:
+        idx = np.sort(rng.choice(1 << 22, n, replace=False)).astype(np.int64)
+        vals = rng.integers(-300, 301, n).astype(np.int32)
     if case == "escape in every block":
         vals[::128] = -(1 << 30)
     if case == "k at its clamp":
         vals[:] = 1 << 13
-    w, lg, lv, kp, bp, nb = transfer.rice_block_pack_host(idx, vals)
-    if case == "k at its clamp" and not ((kp >> 4) == 11).all():
+    trim = {"lane ending in the last 3 words": 0,
+            "windows clipped at the stream's end": 2}.get(case)
+    args, kw = x1_inputs(torch, idx, vals, trim)
+    kp, lg, lv = args[3], args[1], args[2]
+    if case == "k at its clamp" and not ((kp[:1] >> 4) == 11).all():
         raise AssertionError("the k-clamp case does not reach k = 11")
-    nbk, nwk = (transfer.rice_block_bucket(nb),
-                transfer.rice_block_bucket(w.size))
-
-    def pad(a, size, dt):
-        out = np.zeros(size, dt)
-        out[:a.size] = a
-        return out
-
-    return (pad(w, nwk, np.uint32).view(np.int32),
-            pad(lg, nbk, np.uint16).view(np.int16),
-            pad(lv, nbk, np.uint16).view(np.int16), pad(kp, nbk, np.uint8),
-            pad(bp, nbk, np.int32), n, nbk)
+    if case == "128 escapes in a block" and not (
+            int(lg[0]) & 0xFFFF == int(lv[0]) & 0xFFFF == 6656):
+        raise AssertionError("the escape block's lanes are not 6,656 bits")
+    return args, {**kw, "s": s}
 
 
-def phase_x1(torch, xh, first_call, main_launches, card):
-    """Phase 14c: X1 against its plain version on the card, on the blocks
-    of 14b's first sub-batch of phase 3's streams and on the edge cases;
-    qflat bit-equal each time.  Device span (median of 5 calls), event ms,
-    plain ms, byte bound, launches per 32-frame roundtrip.  Returns the
-    row of the kernels line."""
-    args, kw = first_call
-    words, lens_g, lens_v, k_packed, base_pos, nnz = args
+X1_EDGE_CASES = ("0", "1", "127", "128", "129", "escape in every block",
+                 "k at its clamp", "lane ending in the last 3 words",
+                 "windows clipped at the stream's end",
+                 "128 escapes in a block", "nnz 1024 with padded lanes")
+
+
+def x1_row(torch, xh, args, kw, plain_limit_s=3.0):
+    """One X1 density: bit-equal to the plain version, then pairs, lanes,
+    words, device span and the X1 kernels' own time (``x1_profile``),
+    kernels per call by the library's count, event ms, the byte bound and
+    the plain ms (skipped when one plain call takes over
+    ``plain_limit_s``)."""
     fn = lambda: xh.rice_unpack_qflat(*args, **kw)
     plain = lambda: xh.rice_unpack_qflat_plain(*args, **kw)
-    got, want = fn(), plain()
+    t0 = time.perf_counter()
+    want = plain()
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("X1 disagrees with its plain version on phase "
-                             "3's blocks")
-    n_pairs = int(nnz.reshape(-1)[0])
+    plain_s = time.perf_counter() - t0
+    got = fn()
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    del got, want
     before = xh.cuda_kernels_launched()
     fn()
     torch.cuda.synchronize()
-    per_call = xh.cuda_kernels_launched() - before
-    rng = np.random.default_rng(14)
-    for case in ("0", "1", "127", "128", "129", "escape in every block",
-                 "k at its clamp"):
-        *arrs, n, nbk = lane_case(case, rng)
-        dev = [torch.from_numpy(a).cuda() for a in arrs]
-        s = 1 << 23
-        g = xh.rice_unpack_qflat(*dev, n, n_blocks=nbk, s=s)
-        p = xh.rice_unpack_qflat_plain(*dev, n, n_blocks=nbk, s=s)
-        torch.cuda.synchronize()
-        if not torch.equal(g, p):
-            raise AssertionError(f"X1 disagrees with its plain version "
-                                 f"({case})")
-    print(f"X1 on {card}: bit-equal to its plain version on phase 3's "
-          f"blocks ({n_pairs} pairs, {kw['n_blocks']} lanes, "
-          f"{words.numel()} words) and at nnz 0, 1, 127, 128, 129, an "
-          f"escape in every block, k at its clamp of 11; {per_call} kernel "
-          "per call")
-    row = {"fn": fn, "plain": plain, "err": 0.0,
-           "nbytes": (4 * words.numel() + 5 * kw["n_blocks"] + 4
-                      + 4 * base_pos.numel() + 8 * kw["s"]),
-           "ops": 0}
+    words, nb = args[0], kw["n_blocks"]
+    row = {"pairs": int(args[5].reshape(-1)[0]), "lanes": nb,
+           "words": words.numel(), "equal": equal,
+           "kernels_per_call": xh.cuda_kernels_launched() - before,
+           "nbytes": 4 * words.numel() + 5 * nb + 4 + 4 * nb + 8 * kw["s"]}
+    row["bound_ms"], row["bound_by"] = bound(row["nbytes"], 0)
     row["ms"] = median_ms(fn)
-    row["plain_ms"] = median_ms(plain, reps=5, warm=1)
-    row["bound_ms"], row["bound_by"] = bound(row["nbytes"], row["ops"])
-    row["device_ms"], kernel_ms, per_call = x1_profile(torch, fn)
-    dev_ms = ("not measured" if row["device_ms"] is None
-              else f"{row['device_ms']:.4f} ms ({per_call} CUDA kernels "
-                   f"per call, the X1 kernel itself {kernel_ms:.4f} ms)")
-    print(f"  X1 rice_unpack_qflat: device span {dev_ms}, event "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: inputs once, the "
-          f"dense qflat written once), {main_launches} launches per "
-          "32-frame roundtrip (phase 3)")
+    row["plain_ms"] = (median_ms(plain, reps=3, warm=1)
+                       if plain_s < plain_limit_s else None)
+    row["device_ms"], row["kernel_ms"], row["profiled_kernels"] = (
+        x1_profile(torch, fn))
     return row
 
 
+def x1_line(name, row):
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+    plain = ("skipped (one call over 3 s)" if row["plain_ms"] is None
+             else f"{row['plain_ms']:.4f} ms")
+    return (f"  X1 {name}: {row['pairs']} pairs, {row['lanes']} lanes, "
+            f"{row['words']} words; device span {fmt(row['device_ms'])}, "
+            f"X1 kernels {fmt(row['kernel_ms'])}, kernels per call "
+            f"{row['kernels_per_call']} (library count; profiler "
+            f"{row['profiled_kernels']}), event {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {plain}")
+
+
+def phase_x1(torch, xh, first_calls, main_launches, card):
+    """Phase 14c: X1 against its plain version on the card, bit for bit:
+    on the blocks of 14b's first Rice call of each run (MAX_ERROR, rate,
+    temporal), on the edge cases and on 2^22 pairs at the compaction's cap
+    (32,768 blocks).  At the four densities the numbers of
+    :func:`x1_row`; at most 3 kernels per call by the library's count.
+    Returns the MAX_ERROR row (the kernels line's)."""
+    rows = {}
+    for label, (args, kw) in first_calls.items():
+        rows[label] = x1_row(torch, xh, args, kw)
+    rng = np.random.default_rng(14)
+    for case in X1_EDGE_CASES:
+        args, kw = lane_case(torch, case, rng)
+        got = xh.rice_unpack_qflat(*args, **kw)
+        want = xh.rice_unpack_qflat_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"X1 disagrees with its plain version "
+                                 f"({case})")
+    cap = "2^22 pairs at the cap"
+    args, kw = lane_case(torch, cap, rng)
+    rows[cap] = x1_row(torch, xh, args, kw)
+    del args
+    print(f"X1 on {card}: bit-equal to its plain version at nnz "
+          f"{', '.join(X1_EDGE_CASES)}")
+    for name, row in rows.items():
+        print(x1_line(name, row))
+        if not row["equal"]:
+            raise AssertionError(f"X1 disagrees with its plain version on "
+                                 f"{name}")
+        if row["kernels_per_call"] > 3:
+            raise AssertionError(f"X1 launched {row['kernels_per_call']} "
+                                 f"kernels in one call ({name})")
+    print(f"  X1: {main_launches} launches per 32-frame roundtrip (phase 3)")
+    return {**rows["MAX_ERROR"], "err": 0.0}
+
+
 def x1_profile(torch, fn, calls=5):
-    """(median device span of one call of fn, median device time of the X1
-    kernel, CUDA kernels per call) from one torch.profiler session over
-    calls + 1 calls, the first left out; a call is cut at each end of the
-    X1 kernel (``rice_lanes``), so a stray event does not lose the
-    session.  (None, None, None) when the session has no X1 kernel."""
+    """(median device span of one call of fn, median device time of X1's
+    kernels in a call, median CUDA kernels per call) from one
+    torch.profiler session over calls + 1 calls, the first left out.  A
+    call ends at each end of the decode kernel (``rice_lanes``); its span
+    starts at its first device event, the clearing memset included; X1's
+    kernels are ``lane_chunk_offsets`` and ``rice_lanes``; memsets and
+    copies are not counted as kernels.  (None, None, None) when the
+    session has no X1 kernel."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1916,15 +2004,19 @@ def x1_profile(torch, fn, calls=5):
         torch.cuda.synchronize()
     ev = sorted((e.time_range.start, e.time_range.end, e.name)
                 for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.name.startswith(("Memcpy", "Memset")))
-    spans, kernel, counts, start = [], [], [], 0
-    for i, (t0, t1, name) in enumerate(ev):
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans, kernel, counts = [], [], []
+    start, own, n = None, 0.0, 0
+    for t0, t1, name in ev:
+        start = t0 if start is None else start
+        if "rice_lanes" in name or "lane_chunk_offsets" in name:
+            own += t1 - t0
+        n += not name.startswith(("Memcpy", "Memset"))
         if "rice_lanes" in name:
-            spans.append((t1 - ev[start][0]) / 1e3)
-            kernel.append((t1 - t0) / 1e3)
-            counts.append(i + 1 - start)
-            start = i + 1
+            spans.append((t1 - start) / 1e3)
+            kernel.append(own / 1e3)
+            counts.append(n)
+            start, own, n = None, 0.0, 0
     if len(spans) < 2:
         return None, None, None
     return (statistics.median(spans[1:]), statistics.median(kernel[1:]),
@@ -2178,8 +2270,9 @@ def main():
             "temporal": (torch.from_numpy(drifting).cuda(), temporal_config,
                          2, temporal_streams)}
     phase_encode_forms(torch, et, runs, card)
-    first_call = phase_decode_forms(torch, et, dh, xh, runs, card)
-    x1 = phase_x1(torch, xh, first_call, launches["rice_unpack_qflat"], card)
+    first_calls = phase_decode_forms(torch, et, dh, xh, runs, card)
+    x1 = phase_x1(torch, xh, first_calls, launches["rice_unpack_qflat"],
+                  card)
     phase_u16(torch, et, dh, frames, main_streams, card)
     phase_routing(et, frames, card)
 

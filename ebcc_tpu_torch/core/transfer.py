@@ -778,7 +778,8 @@ def rice_lane_offsets(lens_g, lens_v):
     """(2nb,) int64 start bit of every lane: the exclusive cumsum of the
     u16 block lengths (int16 bits accepted) of the gap lanes, then the
     value lanes, so the value region starts after the gap region (padded
-    lanes have length 0 and move nothing)."""
+    lanes have length 0 and move nothing).  The plain version: on the card
+    X1 computes them inside its library (``ops.exchange_hopper``)."""
     lens = torch.cat([lens_g, lens_v]).to(torch.int64) & 0xFFFF
     return torch.cumsum(lens, 0) - lens
 
@@ -790,8 +791,9 @@ def rice_block_unpack(words, lens_g, lens_v, k_packed, base_pos, nnz,
     over the 2 * n_blocks lanes (gap blocks then value blocks), each step
     decoding one Rice code per lane from a 64-bit window at the lane's
     running bit offset (the window's first word clipped to nw - 3).  On
-    the card ``ops.exchange_hopper.rice_unpack_qflat`` replaces this loop
-    and the scatter that follows it with one kernel."""
+    the card ``ops.exchange_hopper.rice_unpack_qflat`` replaces this loop,
+    its lane offsets and the scatter that follows it with a memset and two
+    kernels."""
     nb = n_blocks
     dev = words.device
     w32 = _u32(words)

@@ -8,8 +8,10 @@ that follows it in ``kernels.rice_unpack_qflat``: blocked-Rice lanes in,
 the dense int32 coefficient vector ``qflat`` of both layers out.  The
 kernel is CUDA C++ for sm_90a in ``ebcc_tpu_torch/csrc/exchange.cu``
 (design and bound there), built by ``ops/_build.py`` at first use: one
-thread per 128-element block walks the block's gap lane and value lane in
-step and stores each value at its position.
+call clears ``qflat`` (a memset), scans the lane lengths into chunk
+offsets (:func:`rice_chunk_offsets_plain` is that scan's plain version) and
+gives each 128-element block a warp that decodes the block's gap lane and
+value lane from shared memory and stores each value at its position.
 
 A CUDA tensor goes to the kernel, and anything it does not take raises; a
 CPU tensor goes to :func:`rice_unpack_qflat_plain` (the 128-step loop of
@@ -50,8 +52,8 @@ def _lib():
     with _SIG_LOCK:
         if not getattr(lib, "_ebcc_sigs", False):
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.ebcc_rice_unpack_qflat.argtypes = [p, ll, p, p, p, p, i, ll,
-                                                   p, p]
+            lib.ebcc_rice_unpack_qflat.argtypes = [p, ll, p, p, p, p, p, i,
+                                                   ll, p, p, p]
             lib.ebcc_rice_unpack_qflat.restype = i
             lib.ebcc_exchange_kernels_launched.argtypes = []
             lib.ebcc_exchange_kernels_launched.restype = ll
@@ -76,6 +78,23 @@ def rice_unpack_qflat_plain(words, lens_g, lens_v, k_packed, base_pos, nnz,
     keep = (idx >= 0) & (idx < 2 * s)
     qflat[idx[keep]] = vals[keep]
     return qflat
+
+
+def rice_chunk_offsets_plain(lens_g, lens_v):
+    """Plain version of X1's offset scan: for each chunk of 32 lanes the
+    exclusive start bit of its gap lanes, then of its value lanes within
+    the value region, then the total gap bits -> (2 * nc + 1,) int64.  A
+    lane's start is its chunk's plus the lengths before it in the chunk
+    (the value lanes' plus the total gap bits), which equals
+    ``transfer.rice_lane_offsets``."""
+    nb = lens_g.shape[0]
+    nc = -(-nb // 32)
+    lens = torch.zeros((2, nc * 32), dtype=torch.int64, device=lens_g.device)
+    lens[0, :nb] = lens_g.to(torch.int64) & 0xFFFF
+    lens[1, :nb] = lens_v.to(torch.int64) & 0xFFFF
+    chunk = lens.reshape(2, nc, 32).sum(2)
+    start = torch.cumsum(chunk, 1) - chunk
+    return torch.cat([start.reshape(-1), chunk[0].sum().reshape(1)])
 
 
 def _check(t, dtype, n, name, dev):
@@ -115,14 +134,16 @@ def rice_unpack_qflat(words, lens_g, lens_v, k_packed, base_pos, nnz, *,
         raise ValueError("n_blocks must be positive")
     nnz_t = torch.as_tensor(nnz, dtype=torch.int32, device=dev).reshape(1)
     lib = _lib()
-    off = transfer.rice_lane_offsets(lens_g[:nb], lens_v[:nb]).contiguous()
-    qflat = torch.zeros(2 * s, dtype=torch.int32, device=dev)
+    chunk_off = torch.empty(2 * (-(-nb // 32)) + 1, dtype=torch.int64,
+                            device=dev)
+    qflat = torch.empty(2 * s, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ebcc_rice_unpack_qflat(
-            words.data_ptr(), words.shape[0], off.data_ptr(),
-            k_packed.data_ptr(), base_pos.data_ptr(), nnz_t.data_ptr(), nb,
-            2 * s, qflat.data_ptr(), stream)
+            words.data_ptr(), words.shape[0], lens_g.data_ptr(),
+            lens_v.data_ptr(), k_packed.data_ptr(), base_pos.data_ptr(),
+            nnz_t.data_ptr(), nb, 2 * s, chunk_off.data_ptr(),
+            qflat.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"rice lane decode kernel: CUDA error {err}")
     LAUNCHES["rice_unpack_qflat"].add()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the port's wavelet kernels (K1, its float variant, K2, K3) of one
-checkout on one CUDA card, so that two checkouts can be compared in turns
-inside one call.
+"""Times the port's wavelet kernels (K1, its float variant, K2, K3) and its
+exchange kernel X1 of one checkout on one CUDA card, so that two checkouts
+can be compared in turns inside one call.
 
 For each kernel, at the main path's shape (4, 1, 736, 1440) and at the tall
 frame (4, 1, 1824, 3616) of a 1801x3600 grid, on the inputs ``chip_smoke.py``
@@ -13,6 +13,13 @@ smoke's ``ms``, the wrapper's host work included), and from
 a call (first kernel's start to last kernel's end), and the device time of
 each kernel of one call.  A shape the checkout refuses is recorded with the
 error it raised.
+
+X1 (``rice_unpack_qflat``) at five densities, on synthetic pairs with the
+pair counts of ``chip_smoke.py`` phase 14c (:data:`X1_DENSITIES`),
+packed by the checkout's host library: bit-equality with its plain
+version, the device span of a call (its clearing included) and X1's own
+kernel time, kernels per call (the library's count and the profiler's),
+event ms, the byte bound and the plain ms (``chip_smoke.x1_row``).
 
 Run from the root of a checkout of this repository::
 
@@ -32,6 +39,20 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FRAME = 736 * 1440
+# name -> (pairs, coefficients of one layer, mean value magnitude): the
+# first Rice call of chip_smoke.py phase 3 (MAX_ERROR, a sub-batch of 4
+# frames), phase 8 (rate) and phase 9 (temporal, 2 chunks of 8 frames),
+# the rate density the encode's pairs would give (25.9M pairs over 8
+# sub-batches), and the compaction's cap; the magnitudes put the words near
+# the smoke's (5,632 words at MAX_ERROR, 832 at rate, 81,920 temporal).
+X1_DENSITIES = {
+    "X1 MAX_ERROR": (11715, 4 * FRAME, 2),
+    "X1 rate": (2088, 4 * FRAME, 1),
+    "X1 temporal": (242676, 16 * FRAME, 1),
+    "X1 rate 3.2M": (3240000, 4 * FRAME, 600),
+    "X1 cap": (1 << 22, 4 * FRAME, 16),
+}
 
 
 def kernels_of_one_call(torch, fn):
@@ -79,6 +100,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
+    cs.f32_ops_per_s(torch)
     frames = cs.load_frames(4)
     tall = cs.load_frames(4, cs.TALL_H, cs.TALL_W)
     result = {"root": root, "card": card, "rows": {}}
@@ -112,6 +134,16 @@ def main():
                    "kernels_us": kernels_of_one_call(torch, fn)}
             result["rows"][key] = row
             print(f"{key}: {json.dumps(row)}", flush=True)
+    from ebcc_tpu_torch.ops import exchange_hopper as xh
+    for seed, (key, (n, s, scale)) in enumerate(X1_DENSITIES.items()):
+        idx, vals = cs.synthetic_pairs(n, 2 * s, scale, seed)
+        x1_args, kw = cs.x1_inputs(torch, idx, vals)
+        kw["s"] = s
+        fn = lambda: xh.rice_unpack_qflat(*x1_args, **kw)
+        row = cs.x1_row(torch, xh, x1_args, kw)
+        row["kernels_us"] = kernels_of_one_call(torch, fn)
+        result["rows"][key] = row
+        print(f"{key}: {json.dumps(row)}", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -10,8 +10,9 @@ byte-identical across the encode forms and decodes bit-equal across the
 five upload forms in MAX_ERROR, rate and temporal mode, with
 ``LINK_STATS`` showing the Rice forms moving fewer bytes; the u16 upload
 against the JAX package's; the routing decisions against the JAX
-package's.  The JAX package's encode runs once (the u16 stream).  Cases
-marked ``cuda`` hold the X1 kernel against its plain version on the card.
+package's.  The JAX package's encode runs once (the u16 stream).  X1's
+chunked lane offsets equal the JAX package's.  Cases marked ``cuda`` hold
+the X1 kernels against their plain version on the card.
 """
 
 import dataclasses
@@ -480,36 +481,81 @@ def card():
 def lane_inputs(case):
     """Blocked-Rice upload arrays of an edge case, padded as the codec pads
     them: -> (arrays, nnz, n_blocks, s)."""
+    s = 1 << 23
     if case == "escape_every_block":
         idx, vals = pairs(1024, 1 << 28)
         vals[::128] = np.int32(-(1 << 30))
     elif case == "k_clamp":
         idx, vals = pairs(1024, 1 << 14)
         vals[:] = np.int32(1 << 13)           # block means put k at 11
+    elif case == "escape_block":
+        idx = (np.arange(128, dtype=np.int64) + 1) * 100000
+        _, vals = pairs(128, 1 << 30)
+        vals = np.where(vals < 0, -1, 1).astype(np.int32) * (1 << 29)
+    elif case == "cap":
+        s = 4 * 736 * 1440
+        idx, vals = pairs(tt.COMPACT_CAP_LIMIT, 3000, space=2 * s)
     else:
-        idx, vals = pairs(int(case), 300)
-    w, lg, lv, kp, bp, nb = tt.rice_block_pack_host(idx, vals)
+        n = {"last_words": 3000, "clipped": 3000, "multiple_of_128": 1024}
+        idx, vals = pairs(n.get(case) or int(case), 300)
+    w, lg, lv, kp, bp, nb = tnative.rice_block_pack(idx, vals)
     if case == "k_clamp":
         assert ((kp >> 4) == 11).all()
+    if case == "escape_block":
+        assert lg[0] == lv[0] == 128 * 52
     nbk, nwk = tt.rice_block_bucket(nb), tt.rice_block_bucket(w.size)
-    up = (_pad(w, nwk, np.uint32).view(np.int32), _pad(lg, nbk, np.uint16),
-          _pad(lv, nbk, np.uint16), _pad(kp, nbk, np.uint8),
-          _pad(bp, nbk, np.int32))
-    return up, idx.size, nbk, 1 << 23
+    # The stream ends at its last code's 3-word window, or 2 words before
+    # it (the windows there clip to nw - 3).
+    nwk = {"last_words": w.size, "clipped": w.size - 2}.get(case, nwk)
+    up = (_pad(w[:nwk], nwk, np.uint32).view(np.int32),
+          _pad(lg, nbk, np.uint16), _pad(lv, nbk, np.uint16),
+          _pad(kp, nbk, np.uint8), _pad(bp, nbk, np.int32))
+    return up, idx.size, nbk, s
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["0", "1", "127", "128", "129", "5000",
-                                  "escape_every_block", "k_clamp"])
+                                  "escape_every_block", "k_clamp",
+                                  "last_words", "clipped", "escape_block",
+                                  "multiple_of_128", "cap"])
 def test_card_rice_lanes_equal_plain(card, case):
-    """X1 on the card: qflat bit-equal to the plain version's."""
+    """X1 on the card: qflat bit-equal to the plain version's; one call
+    launches the offset scan and the decode (the clearing is a memset)."""
     from ebcc_tpu_torch.ops import exchange_hopper as xh
     up, nnz, nbk, s = lane_inputs(case)
     args = [t_of(a).to(card) for a in up]
     before = xh.cuda_kernels_launched()
     got = xh.rice_unpack_qflat(*args, nnz, n_blocks=nbk, s=s)
     torch.cuda.synchronize()
-    assert xh.cuda_kernels_launched() - before == 1
-    want = xh.rice_unpack_qflat_plain(*[a.cpu() for a in args], nnz,
-                                      n_blocks=nbk, s=s)
-    assert torch.equal(got.cpu(), want)
+    assert xh.cuda_kernels_launched() - before == 2
+    want = xh.rice_unpack_qflat_plain(*args, nnz, n_blocks=nbk, s=s)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nb", [1, 31, 32, 33, 96, 1000])
+def test_chunk_offsets_equal_reference(nb):
+    """X1's offset scan (the chunk starts of ``rice_chunk_offsets_plain``,
+    then the lengths before a lane in its chunk of 32) gives the JAX
+    package's lane offsets (``ebcc_tpu/core/transfer.py:858-861``) and
+    ``transfer.rice_lane_offsets``."""
+    from ebcc_tpu_torch.ops import exchange_hopper as xh
+    rng = np.random.default_rng(nb)
+    lg, lv = (rng.integers(0, 1 << 16, nb).astype(np.uint16)
+              for _ in range(2))
+    co = xh.rice_chunk_offsets_plain(t_of(lg), t_of(lv)).numpy()
+    nc, c = -(-nb // 32), np.arange(nb) // 32
+
+    def within(lens):
+        x = _pad(lens.astype(np.int64), 32 * nc, np.int64).reshape(nc, 32)
+        return (np.cumsum(x, 1) - x).reshape(-1)[:nb]
+
+    got = np.concatenate([co[c] + within(lg),
+                          co[2 * nc] + co[nc + c] + within(lv)])
+    jg, jv = jnp.asarray(lg).astype(jnp.int32), jnp.asarray(lv).astype(
+        jnp.int32)
+    cg = jnp.cumsum(jg)
+    want = np.concatenate([np.asarray(cg - jg),
+                           np.asarray(cg[-1] + jnp.cumsum(jv) - jv)])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, tt.rice_lane_offsets(t_of(lg), t_of(lv)).numpy())
