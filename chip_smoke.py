@@ -7,11 +7,14 @@ Run from the root of a checkout, with no arguments::
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
-1. Card and build: PyTorch version, the card's name and power limit, whether
-   ``zstandard`` is importable (without it the codec writes STORE payloads,
-   so the printed CR is not the codec's), the ``nvcc`` build of every
-   kernel source under ``ebcc_tpu_torch/csrc/`` and, at the same time, the
-   ``c++`` build of the host libraries.
+1. Card and build: PyTorch version, the card's name and power limit, the
+   zstd binding the ZSTD backend uses (``zstandard``, or ``libzstd.so.1``
+   through ``ctypes`` where the module is missing) and libzstd's version
+   (the run fails with neither: STORE payloads would make every CR below
+   another codec's), the ``nvcc`` build of every kernel source under
+   ``ebcc_tpu_torch/csrc/`` and, at the same time, the ``c++`` build of the
+   host libraries (the CAB coder with PGO where the compiler can run it;
+   phase 12a prints which build each got).
 2. Kernels against their plain PyTorch versions on the card, at the main
    path's shape (4, 1, 736, 1440): K1 ``dwt2d_quantize`` at 5 levels, its
    float variant ``dwt2d_transform`` at 3 levels, K2 ``idwt2d_dequant`` at 5
@@ -59,10 +62,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    mode takes K1); the 32 frames through ``roundtrip_frames_device`` at
    base_cr 30, sub-batches of 4: every stream within raw bytes / 30, the
    budget use, max error and RMSE printed, the decode again bit-equal, the
-   first 4 frames byte-identical one at a time, K1 and K2 launched.  Under
-   STORE a base_cr 30 budget holds at most one plane, so 8 frames at
-   base_cr 4 take the cut search deeper; a 128x256 input at base_cr 8
-   must make the same cut and flags on the CPU and on the card.
+   first 4 frames byte-identical one at a time, K1 and K2 launched.  8
+   frames at base_cr 4 take a budget 7.5x larger, which with zstd holds
+   every plane (cut 0, no partial plane): the search's other end; a
+   128x256 input at base_cr 8 must make the same cut and flags on the CPU
+   and on the card.
 9. Temporal mode: 4 chunks of 8 frames (frame c advected 0.7 samples per
    step plus a drift) at MAX_ERROR 0.5 through ``roundtrip_frames_device``,
    sub-batches of 2 chunks: every frame within 0.5, the decode equal bit
@@ -92,19 +96,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 12. Host C++ (``ebcc_tpu_torch/csrc/host/``): (a) the build seconds of
     ``libebcc_host.so`` (built in phase 1 beside the kernels), whether
     ``zstd.h`` and ``libzstd`` exist, and the build of
-    ``libebcc_native_codec.so`` or the ``RuntimeError`` a native route
-    raises without it; (b) the 32 frames of phase 3 through
+    ``libebcc_native_codec.so`` from the port's zstd declarations (the run
+    fails without it); (b) the 32 frames of phase 3 through
     ``roundtrip_frames_device`` with ``entropy_backend`` cab, cab2 and
-    auto: every frame within 0.5, K1 and K2 launched, the decode again
+    auto (CAB against zstd, the backends it kept counted): every frame
+    within 0.5, K1 and K2 launched, the decode again
     bit-equal, stream bytes, CR and host stage times; (c) the native
     packer and unpacker against their numpy twins: phase 3's encode
     byte-identical with ``EBCC_NO_NATIVE_PACK=1``, phase 3's and phase 9's
     streams decoded bit-equal with ``EBCC_NO_NATIVE_UNPACK=1``, with the
     ``dec: unpack planes`` thread time and decode walls of each; (d) phase
     8's rate roundtrip with the host assembly time per sub-batch; (e)
-    where the host codec builds, 4 frames encoded through it and decoded
-    on the card, (b)'s streams and phase 11a's container decoded through
-    it, all within 0.5; where it does not, a routed call must raise.
+    native routing: 4 frames encoded through the host codec (zstd) and
+    decoded on the card, (b)'s streams and phase 11a's container decoded
+    through it, all within 0.5.
 13. Scale-out and the user surfaces: (a) the 32 frames of phase 3 through
     ``encode_chunked_sharded`` over ``make_mesh()`` (every visible card;
     ``torch.cuda.device_count()`` printed) in one-frame chunks,
@@ -148,7 +153,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     originals, upload bytes per point against the float upload, K1
     launched; (e) the link probe both ways, ``backend_choice`` for encode
     and decode, and under ``EBCC_LINK_MBPS=1`` the decision and an explicit
-    native route's ``RuntimeError`` where the host codec does not build.
+    native route's encode, decoded on the card within 0.5.
+15. The host modules of the JAX package (no kernel: every launch count
+    must stay 0): (a) legacy EBCC/EBCK (``ebcc_tpu_torch.compat``; Pillow's
+    version and JPEG 2000 support printed): ``LEGACY_FRAMES`` frames of
+    721x1440 through ``compat.encode_chunked`` in (1, 721, 1440) chunks at
+    MAX_ERROR 0.5, base_cr 30, and one frame through ``encode_frame`` at
+    RELATIVE_ERROR 1e-2: each within its bound through ``compat.decode``
+    and ``ebcc_tpu_torch.decode(..., device="cuda")``, a truncated stream
+    raising ``LegacyFormatError``, encode and decode walls and bytes; (b)
+    the HDF5 filter plugin: its build seconds, its filter called through
+    ``H5PLget_plugin_info()`` on a (4, 721, 1440) chunk at MAX_ERROR 0.5,
+    the encoded bytes decoded on the card within 0.5, the reverse flag
+    equal to ``native.native_decode``; where ``h5py`` imports, a dataset
+    written and read through it in a process whose ``HDF5_PLUGIN_PATH``
+    names the port's plugin directory alone; (c) native routing built (the
+    host codec's build seconds and what phases 12e and 14e ran); (d) the
+    CAB coder with PGO and without it, each its own ``libebcc_host.so``:
+    phase 12b's ``cab`` roundtrip on each (PGO, plain, plain, PGO),
+    streams byte-identical, ``assemble+zstd`` and ``dec: entropy decode``
+    of each run and both build times; (e) ``compat.reference_bin``, which
+    raises ``ReferenceUnavailable`` without the reference's sources.
 
 Phases 3, 5, 7, 8, 9 and 12 print the total stream bytes or the budget use of
 their roundtrips, and phases 3, 8 and 9 the launches of each kernel in the
@@ -674,9 +699,11 @@ def phase_main_path(torch, et, dh, frames, card):
     nbytes = sum(len(s) for s in streams)
     cr = x.numel() * 4 / nbytes
     backend = entropy.default_backend()
+    if backend != entropy.BACKEND_ZSTD:
+        raise AssertionError("the main path's streams are not zstd's")
     print(f"main path on {card}: {n} frames {H}x{W}, roundtrip {wall:.4f} s, "
           f"{x.numel() / wall:.1f} pts/s, CR {cr:.3f} (entropy backend "
-          f"{'zstd' if backend == entropy.BACKEND_ZSTD else 'STORE'}), "
+          f"zstd level 3, {entropy.zstd_binding()}), "
           f"max error {maxerr:.6f}, stream bytes {nbytes}")
     print(f"launches on the main path: {launches}")
     missing = [k for k in ("dwt2d_quantize", "dwt2d_transform",
@@ -907,9 +934,10 @@ def phase_rate(torch, et, dh, frames, card):
     within its budget, the decode again bit-equal, the first 4 frames
     byte-identical one at a time, K1 and K2 launched, and a small input
     encoded on the CPU makes the card's cut and flags.  K1 must equal the
-    truncation of its float variant (rate mode takes K1).  Under STORE a
-    base_cr 30 budget holds at most one plane, so 8 frames at base_cr 4
-    drive the cut search deeper."""
+    truncation of its float variant (rate mode takes K1).  8 frames at
+    base_cr 4 give the cut search a budget that holds every plane with zstd
+    (with STORE payloads, before the port bound ``libzstd.so.1``, this was
+    the only run that kept more than one plane)."""
     from ebcc_tpu_torch.core import stream
     from ebcc_tpu_torch.ops import bitplane
     u = scaled_input(torch, frames, (4, 1, 736, 1440))
@@ -1056,8 +1084,7 @@ def phase_lossless(torch, et, dh, frames, card):
     cr = x.numel() * 4 / sum(len(s) for s in streams)
     print(f"lossless on {card}: host-only work (no kernel), 8 frames as 2 "
           f"chunks of 4 with NaN/+-Inf/-0.0, encode+decode {wall:.4f} s, "
-          f"bit-exact, CR {cr:.4f} (entropy backend {backend_name()}; under "
-          f"STORE this CR is not the codec's)")
+          f"bit-exact, CR {cr:.4f} (entropy backend {backend_name()})")
 
 
 def timed(fn, *args, **kw):
@@ -1291,20 +1318,34 @@ def error_line(e):
     return next((ln.strip() for ln in lines if "error" in ln), lines[0])
 
 
+def compiler_line(cxx):
+    """A compiler's path and the first line of its ``--version``."""
+    out = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    return f"{cxx} ({out[0] if out else 'no version'})"
+
+
 def phase_native_build(build_seconds, codec_error):
-    """Phase 12a: the host libraries' build (phase 1 built them) and
-    whether zstd is there for the host codec."""
+    """Phase 12a: the host libraries' build (phase 1 built them, the CAB
+    coder with PGO where the compiler can) and zstd for the host codec,
+    which takes its
+    declarations from ``csrc/host/zstd_decls.h`` and links
+    ``libzstd.so.1``, so it builds without ``zstd.h``."""
     import ctypes.util
-    print(f"host library libebcc_host.so built in "
-          f"{build_seconds['ebcc_host']:.2f} s (c++ -O3 -ffp-contract=off)")
+    from ebcc_tpu_torch.ops import _build
+    secs = {k: round(v, 2) for k, v in build_seconds.items()
+            if k.startswith(("cab_pgo", "ebcc_host", "ebcc_native_codec"))}
+    print(f"host compiler {compiler_line(_build.cxx_path())}; "
+          f"libebcc_host.so: "
+          f"{_build.BUILD_KIND['ebcc_host']}; build seconds {secs} "
+          f"(-O3 -ffp-contract=off)")
     print(f"zstd.h: {'present' if os.path.exists('/usr/include/zstd.h') else 'absent'} "
           f"at /usr/include; libzstd: {ctypes.util.find_library('zstd')}")
-    if codec_error is None:
-        print(f"libebcc_native_codec.so built in "
-              f"{build_seconds['ebcc_native_codec']:.2f} s")
-    else:
-        print(f"libebcc_native_codec.so cannot be built; a native route "
-              f"raises RuntimeError: {error_line(codec_error)}")
+    if codec_error is not None:
+        raise AssertionError(f"libebcc_native_codec.so did not build: "
+                             f"{error_line(codec_error)}")
+    print(f"libebcc_native_codec.so built from csrc/host/zstd_decls.h: "
+          f"{_build.BUILD_KIND['ebcc_native_codec']}")
 
 
 def phase_cab_main_path(torch, et, dh, frames, card):
@@ -1312,8 +1353,11 @@ def phase_cab_main_path(torch, et, dh, frames, card):
     MAX_ERROR 0.5, sub-batches of 4, with ``entropy_backend`` cab, cab2 and
     auto: every frame within 0.5 on the card, K1 and K2 launched, the
     decode again bit-equal; stream bytes, CR, wall time and the host
-    stages.  Returns backend -> streams."""
+    stages.  ``auto`` codes each layer with CAB and with zstd and keeps the
+    smaller; the ids kept are counted.  Returns backend -> streams."""
+    import collections
     import dataclasses
+    from ebcc_tpu_torch.core import stream
     n = frames.shape[0]
     x = torch.from_numpy(frames).reshape(n, 1, H, W).cuda()
     opts = et.EncodeOptions()
@@ -1350,6 +1394,10 @@ def phase_cab_main_path(torch, et, dh, frames, card):
                                                         max_batch=4)):
             raise AssertionError(f"{backend}: decode_frames_device differs "
                                  "from the roundtrip's decode")
+        kept = collections.Counter(
+            stream.split_frame_stream(s)[0].entropy for s in streams)
+        print(f"  {backend}: header entropy ids {dict(sorted(kept.items()))}"
+              f" (1 zstd, 2 cab, 4 cab2)")
         out[backend] = streams
     return out
 
@@ -1428,25 +1476,17 @@ def phase_rate_assembly(torch, et, dh, frames, card):
 
 
 def phase_native_routing(et, frames, cab_streams, blob, codec_error, card):
-    """Phase 12e: native routing.  Where the host codec builds: 4 frames
-    encoded through it and decoded on the card, the card's CAB streams of
-    12b decoded through it, and one container through both routes, all
-    within 0.5.  Where it does not, a routed call must raise.  The host
-    codec codes CAB here: the card's machine may lack ``zstandard``, which
-    the card's decode of a zstd payload needs."""
-    import dataclasses
+    """Phase 12e: native routing: 4 frames encoded through the host codec
+    (zstd payloads, the format's default) and decoded on the card, the
+    card's CAB streams of 12b decoded through it, and one container
+    through both routes, all within 0.5.  (Before the port bound
+    ``libzstd.so.1`` the host codec did not build on the card's machine,
+    and this phase checked that a routed call raised.)"""
     from concurrent.futures import ThreadPoolExecutor
-    config = dataclasses.replace(era5_config(et, 4), entropy_backend="cab")
+    config = era5_config(et, 4)
     four = frames[:4]
     if codec_error is not None:
-        with env_set(EBCC_ENCODE_BACKEND="native"):
-            try:
-                et.encode_chunked(four, config)
-            except RuntimeError as e:
-                print(f"native routing on {card}: not available, a routed "
-                      f"encode raises RuntimeError ({error_line(e)})")
-                return
-        raise AssertionError("a native route ran without its library")
+        raise AssertionError("native routing: the host codec did not build")
     with env_set(EBCC_ENCODE_BACKEND="native"):
         routed, t_enc = timed(et.encode_chunked, four, config)
     dev, t_dev_dec = timed(et.decode_chunked, routed)
@@ -2060,8 +2100,8 @@ def phase_u16(torch, et, dh, frames, main_streams, card):
 def phase_routing(et, frames, card):
     """Phase 14e: the link probe of the card both ways, ``backend_choice``
     for encode and decode, and under ``EBCC_LINK_MBPS=1`` the decision and
-    an explicit native route's ``RuntimeError`` (the host codec does not
-    build without zstd)."""
+    an explicit native route's encode, decoded on the card within 0.5 (the
+    host codec builds: phase 12a).  Returns what ran."""
     from ebcc_tpu_torch.core import routing
     with env_set(EBCC_LINK_MBPS=""):          # "" = probe the link
         routing.reset_cache()
@@ -2075,20 +2115,287 @@ def phase_routing(et, frames, card):
         slow = {k: routing.backend_choice(k) for k in ("encode", "decode")}
         print(f"routing (e) with EBCC_LINK_MBPS=1: backend_choice {slow}")
         with env_set(EBCC_ENCODE_BACKEND="native"):
-            try:
-                et.encode(frames[0], era5_config(et, 1))
-                raised = None
-            except RuntimeError as e:
-                raised = error_line(e)
+            routed, t_enc = timed(et.encode, frames[0], era5_config(et, 1))
     routing.reset_cache()
-    print(f"routing (e): explicit native encode raised RuntimeError: "
-          f"{raised}")
-    if routing._native_available():
+    err = float(np.abs(et.decode(routed, device="cuda")[0] - frames[0]).max())
+    print(f"routing (e): explicit native encode of one frame in {t_enc:.4f}"
+          f" s, {len(routed)} bytes, decoded on the card, max error "
+          f"{err:.6f}")
+    if not routing._native_available():
+        raise AssertionError("routing: the host codec is not available")
+    if err > 0.5:
+        raise AssertionError(f"routing: native encode over the bound {err}")
+    return {"choice": choice, "slow link": slow, "native encode error": err}
+
+
+# ---- phase 15: the JAX package's host modules ----
+
+# Full 721 x 1440 frames of phase 15a: the J2K search takes ~14.5 s a frame
+# on the H100 host's CPU (PERF.md), so 3 keep the phase near 60 s.
+LEGACY_FRAMES = 3
+
+
+def no_launches(torch, dh, fn, *args, **kw):
+    """-> (fn's result, wall seconds); raises when a kernel of the port was
+    launched in the call (K1, K2, K3 and X1: the wrappers' counts and the
+    kernels' library's own)."""
+    torch.cuda.synchronize()
+    reset_all_counts(dh)
+    before = dh.cuda_kernels_launched()
+    out, wall = timed(fn, *args, **kw)
+    torch.cuda.synchronize()
+    counts = all_counts(dh)
+    if any(counts.values()) or dh.cuda_kernels_launched() != before:
+        raise AssertionError(f"host-only work launched kernels: {counts}")
+    return out, wall
+
+
+def phase_legacy(torch, et, dh, frames, card):
+    """Phase 15a: legacy EBCC/EBCK streams (host work: J2K through Pillow,
+    SPIHT and zstd level 22 in C).  ``LEGACY_FRAMES`` frames through
+    ``compat.encode_chunked`` in (1, H, W) chunks at MAX_ERROR 0.5 and one
+    through ``encode_frame`` at RELATIVE_ERROR 1e-2: each within its bound
+    through ``compat.decode`` and ``ebcc_tpu_torch.decode`` on the card; a
+    truncated stream raises ``LegacyFormatError``; no kernel launched."""
+    import PIL
+    from PIL import features
+    from ebcc_tpu_torch import compat
+    print(f"Pillow {PIL.__version__}, jpg_2000 "
+          f"{features.check('jpg_2000')}")
+    n = LEGACY_FRAMES
+    data = frames[:n]
+    cfg = et.CodecConfig(dims=(n, H, W), base_cr=30,
+                         residual_mode=et.RESIDUAL_MAX_ERROR, error=0.5,
+                         chunk_dims=(1, H, W))
+    rel = et.CodecConfig(dims=(1, H, W), base_cr=30,
+                         residual_mode=et.RESIDUAL_RELATIVE_ERROR, error=1e-2)
+    rng = float(frames[n].max() - frames[n].min())
+    cases = (("EBCK", compat.encode_chunked, data, cfg, 0.5),
+             ("EBCC", compat.encode_frame, frames[n], rel, 1e-2 * rng))
+    for magic, enc, x, config, bound in cases:
+        blob, t_enc = no_launches(torch, dh, enc, x, config)
+        if blob[:4] != magic.encode():
+            raise AssertionError(f"legacy stream magic {blob[:4]!r}")
+        host, t_dec = no_launches(torch, dh, compat.decode, blob)
+        card_out, t_card = no_launches(torch, dh, et.decode, blob,
+                                       device="cuda")
+        if not np.array_equal(host, card_out):
+            raise AssertionError("ebcc_tpu_torch.decode differs from "
+                                 "compat.decode on a legacy stream")
+        err = float(np.abs(host.reshape(x.shape) - x).max())
+        print(f"legacy {magic} on {card}: {x.size // (H * W)} frame(s) "
+              f"{H}x{W}, {config.residual_mode} at {config.error}, encode "
+              f"{t_enc:.4f} s, compat.decode {t_dec:.4f} s, "
+              f"ebcc_tpu_torch.decode(device='cuda') {t_card:.4f} s, "
+              f"{len(blob)} bytes, CR {x.nbytes / len(blob):.3f}, max "
+              f"error {err:.6f} (bound {bound:.6f}); no kernel launched")
+        if err > bound:
+            raise AssertionError(f"legacy {magic}: error {err} > {bound}")
+        try:
+            compat.decode(blob[:-5])
+        except compat.LegacyFormatError as e:
+            print(f"  truncated {magic} stream: LegacyFormatError ({e})")
+        else:
+            raise AssertionError("a truncated legacy stream decoded")
+
+
+def phase_plugin(et, frames, tmp, card):
+    """Phase 15b: the port's HDF5 filter plugin.  Its filter, reached as
+    HDF5 reaches it (``H5PLget_plugin_info``), on a (4, H, W) chunk at
+    MAX_ERROR 0.5: the bytes decode on the card within 0.5, the reverse
+    flag gives ``native.native_decode``'s values.  Where ``h5py`` imports,
+    a dataset written and read through the plugin in a process of its
+    own."""
+    import ctypes
+    import ctypes.util
+    from ebcc_tpu_torch import native
+    from ebcc_tpu_torch.api.filter_wrapper import EBCC_Filter
+    from ebcc_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    pdir = native.plugin_dir()
+    lib_path = os.path.join(pdir, os.listdir(pdir)[0])
+    secs = {k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()
+            if k.startswith(_build.PLUGIN)}
+    print(f"HDF5 plugin {os.path.relpath(lib_path)} "
+          f"({_build.BUILD_KIND[_build.PLUGIN]}) built in {secs} s "
+          f"({time.perf_counter() - t0:.2f} s with its checks); directory "
+          f"entries {os.listdir(pdir)}")
+    if len(os.listdir(pdir)) != 1:
+        raise AssertionError("the plugin directory holds more than it")
+    fn_t = ctypes.CFUNCTYPE(
+        ctypes.c_size_t, ctypes.c_uint, ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_uint), ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_void_p))
+
+    class H5ZClass2(ctypes.Structure):
+        _fields_ = [("version", ctypes.c_int), ("id", ctypes.c_int),
+                    ("encoder_present", ctypes.c_uint),
+                    ("decoder_present", ctypes.c_uint),
+                    ("name", ctypes.c_char_p),
+                    ("can_apply", ctypes.c_void_p),
+                    ("set_local", ctypes.c_void_p), ("filter", fn_t)]
+
+    lib = ctypes.CDLL(lib_path)
+    lib.H5PLget_plugin_info.restype = ctypes.POINTER(H5ZClass2)
+    cls = lib.H5PLget_plugin_info().contents
+    if (cls.version, cls.id, cls.encoder_present,
+            cls.decoder_present) != (1, 33030, 1, 1):
+        raise AssertionError("the plugin's filter class is not 33030's")
+    libc = ctypes.CDLL(ctypes.util.find_library("c"))
+    libc.malloc.restype = ctypes.c_void_p
+    libc.malloc.argtypes = [ctypes.c_size_t]
+    libc.free.argtypes = [ctypes.c_void_p]
+    kw = dict(EBCC_Filter(base_cr=30, height=H, width=W,
+                          residual_opt=("max_error_target", 0.5),
+                          data_dim=3))
+    cd = (ctypes.c_uint * 5)(*kw["compression_opts"])
+
+    def run(flags, data):
+        buf = ctypes.c_void_p(libc.malloc(len(data)))
+        ctypes.memmove(buf, data, len(data))
+        size = ctypes.c_size_t(len(data))
+        n = cls.filter(flags, 5, cd, len(data), ctypes.byref(size),
+                       ctypes.byref(buf))
+        try:
+            if n == 0:
+                raise AssertionError("the plugin's filter failed")
+            return ctypes.string_at(buf, n)
+        finally:
+            libc.free(buf)
+
+    x = np.ascontiguousarray(frames[:4])
+    blob, t_enc = timed(run, 0, x.tobytes())
+    out, t_dec = timed(et.decode, blob, device="cuda")
+    err = float(np.abs(out - x).max())
+    back, t_rev = timed(run, 0x0100, blob)
+    back = np.frombuffer(back, np.float32)
+    if not np.array_equal(back, native.native_decode(blob)):
+        raise AssertionError("the plugin's reverse filter differs from "
+                             "native_decode")
+    print(f"plugin filter on {card}: (4, {H}, {W}) chunk encoded in "
+          f"{t_enc:.4f} s ({len(blob)} bytes, CR "
+          f"{x.nbytes / len(blob):.3f}), decoded on the card in {t_dec:.4f}"
+          f" s, max error {err:.6f}; reverse flag in {t_rev:.4f} s == "
+          f"native_decode")
+    if err > 0.5:
+        raise AssertionError(f"plugin stream over the bound: {err}")
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        print("h5py: not importable; no dataset written through the plugin")
         return
-    if set(choice.values()) != {"device"} or set(slow.values()) != {
-            "device"} or raised is None:
-        raise AssertionError("routing without a host codec must stay on the "
-                             "device, and an explicit native route raise")
+    np.save(os.path.join(tmp, "plugin_x.npy"), x)
+    code = ("import sys, numpy as np, h5py\n"
+            "x = np.load(sys.argv[1]); kw = eval(sys.argv[2])\n"
+            "with h5py.File(sys.argv[3], 'w') as f:\n"
+            "    f.create_dataset('v', shape=x.shape, **kw)[...] = x\n"
+            "with h5py.File(sys.argv[3], 'r') as f:\n"
+            "    y = f['v'][...]\n"
+            "print(float(abs(y - x).max()))\n")
+    env = dict(os.environ, HDF5_PLUGIN_PATH=pdir)
+    proc, t = timed(subprocess.run, [
+        sys.executable, "-c", code, os.path.join(tmp, "plugin_x.npy"),
+        repr(kw), os.path.join(tmp, "plugin.h5")], capture_output=True,
+        text=True, env=env, timeout=CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"h5py through the plugin failed: "
+                             f"{proc.stderr[-2000:]}")
+    err = float(proc.stdout.split()[-1])
+    print(f"h5py (importable) through the plugin: 4 frames written and read"
+          f" in a process in {t:.2f} s, max error {err:.6f}")
+    if err > 0.5:
+        raise AssertionError(f"h5py through the plugin: error {err}")
+
+
+def phase_native_built(build_seconds, routed):
+    """Phase 15c: native routing builds on this machine now (phase 12a's
+    library) and phases 12e and 14e ran their routed calls."""
+    secs = {k: round(v, 2) for k, v in build_seconds.items()
+            if k.startswith("ebcc_native_codec")}
+    print(f"native routing: libebcc_native_codec.so built in {secs} s; "
+          f"phase 12e "
+          f"(routed container encode and decodes) and 14e ({routed}) ran "
+          f"within 0.5")
+
+
+def phase_pgo(torch, et, frames, card):
+    """Phase 15d: the CAB coder with PGO and without it, each its own
+    ``libebcc_host.so``: phase 12b's ``cab`` roundtrip on each (PGO,
+    plain, plain, PGO), streams byte-identical, the host stages of each
+    run and both builds' seconds."""
+    import ctypes
+    import dataclasses
+    import shutil
+    import tempfile
+    from ebcc_tpu_torch import native
+    from ebcc_tpu_torch.ops import _build
+    default = _build.BUILD_KIND["ebcc_host"]
+    with contextlib.ExitStack() as stack:
+        if default != "pgo":
+            # One compiler for both builds, so the comparison is PGO's
+            # alone, in a build directory of this phase's own.
+            cxx = shutil.which("c++")
+            print(f"CAB PGO: the default build is {default!r}; both builds "
+                  f"with {cxx} in a build directory of this phase's own")
+            stack.enter_context(env_set(CXX=cxx))
+            stack.enter_context(patched(_build, "BUILD_DIR", stack.enter_context(
+                tempfile.TemporaryDirectory(dir=_build.BUILD_DIR))))
+            stack.enter_context(patched(_build, "BUILD_SECONDS", {}))
+        paths = {}
+        for kind, pgo in (("pgo", True), ("plain", False)):
+            paths[kind] = _build.build_host("ebcc_host", pgo=pgo)
+            if _build.BUILD_KIND["ebcc_host"] != kind:
+                raise AssertionError(f"libebcc_host.so {kind} build: "
+                                     f"{_build.BUILD_KIND['ebcc_host']}")
+        secs = {k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()
+                if k.startswith(("cab_pgo", "ebcc_host"))}
+        print(f"CAB PGO on {card}: {compiler_line(_build.cxx_path())}, "
+              f"libebcc_host.so "
+              f"builds {[os.path.relpath(p, _build.CSRC) for p in paths.values()]}"
+              f", build seconds {secs} (the PGO sequence's steps, then each "
+              f"library)")
+        libs = {k: native.bind_host(ctypes.CDLL(p)) for k, p in paths.items()}
+    _build.BUILD_KIND["ebcc_host"] = default
+    if paths["pgo"] == paths["plain"]:
+        raise AssertionError("the PGO and plain builds share a file")
+    n = frames.shape[0]
+    x = torch.from_numpy(frames).reshape(n, 1, H, W).cuda()
+    config = dataclasses.replace(era5_config(et, n), entropy_backend="cab")
+    opts = et.EncodeOptions()
+    streams = {}
+    for kind in ("pgo", "plain", "plain", "pgo"):
+        with patched(native, "_host_lib", libs[kind]):
+            torch.cuda.synchronize()
+            (out, dec), wall, snap = timed_stages(
+                et.roundtrip_frames_device, x, config, opts, max_batch=4)
+            torch.cuda.synchronize()
+        err = float((x - dec).abs().max())
+        print(f"  cab roundtrip with the {kind} coder: {wall:.4f} s, "
+              f"assemble+zstd {stage_s(snap, 'assemble+zstd'):.4f} s, dec: "
+              f"entropy decode {stage_s(snap, 'dec: entropy decode'):.4f} s"
+              f" (thread time), {sum(len(s) for s in out)} bytes, max "
+              f"error {err:.6f}")
+        if err > 0.5:
+            raise AssertionError(f"cab ({kind}): error {err}")
+        if streams.setdefault(kind, out) != out:
+            raise AssertionError(f"cab ({kind}) streams differ between runs")
+    if streams["pgo"] != streams["plain"]:
+        raise AssertionError("PGO and plain CAB coders wrote other streams")
+    print("  PGO and plain CAB streams byte-identical")
+
+
+def phase_reference_bin(card):
+    """Phase 15e: ``compat.reference_bin`` needs the reference's C sources,
+    which no checkout holds: it raises ``ReferenceUnavailable``."""
+    from ebcc_tpu_torch.compat import reference_bin as rb
+    try:
+        rb.load()
+    except rb.ReferenceUnavailable as e:
+        print(f"reference_bin on {card}: ReferenceUnavailable ({e}); "
+              f"sources looked for in {rb.REFERENCE_SRC}")
+        return
+    print(f"reference_bin on {card}: the reference built from "
+          f"{rb.REFERENCE_SRC}")
 
 
 def rank_worker(args):
@@ -2175,12 +2482,12 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     print(f"card: {card}, float32 add/multiply rate "
           f"{f32_ops_per_s(torch):.4e} ops/s (bounds' operations rate)")
-    try:
-        import zstandard  # noqa: F401
-        print("zstandard: importable")
-    except ImportError:
-        print("zstandard: NOT importable; payloads are STORE and the CR "
-              "printed below is not the codec's")
+    from ebcc_tpu_torch.core import entropy
+    binding = entropy.zstd_binding()
+    print(f"zstd binding: {binding}")
+    if binding is None:
+        raise AssertionError("no zstd binding (neither zstandard nor "
+                             "libzstd.so.1): payloads would be STORE")
     sources = sorted(f[:-3] for f in os.listdir(_build.CSRC)
                      if f.endswith(".cu"))
 
@@ -2274,7 +2581,15 @@ def main():
     x1 = phase_x1(torch, xh, first_calls, launches["rice_unpack_qflat"],
                   card)
     phase_u16(torch, et, dh, frames, main_streams, card)
-    phase_routing(et, frames, card)
+    routed = phase_routing(et, frames, card)
+
+    # ---- phase 15: legacy streams, the HDF5 plugin, PGO, reference_bin ----
+    phase_legacy(torch, et, dh, frames, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_plugin(et, frames, tmp, card)
+    phase_native_built(_build.BUILD_SECONDS, routed)
+    phase_pgo(torch, et, frames, card)
+    phase_reference_bin(card)
 
     src = "ebcc_tpu_torch/csrc/dwt97.cu"
     kernels = []

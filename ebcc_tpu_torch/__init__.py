@@ -6,9 +6,11 @@ writes and reads the same ETPU streams and ETPK chunked containers (with
 region decode; streaming file IO in ``ebcc_tpu_torch.io``; containers coded
 over several CUDA devices or ``torch.distributed`` ranks in
 ``ebcc_tpu_torch.parallel``; the filter spec, the command line
-``python -m ebcc_tpu_torch.api.cli``, HDF5 datasets and the Zarr codec in
-``ebcc_tpu_torch.api``; ``torch.profiler`` traces in
-``ebcc_tpu_torch.utils.profiling``).  It covers every residual mode of
+``python -m ebcc_tpu_torch.api.cli``, HDF5 datasets, the HDF5 filter
+plugin, xarray datasets and the Zarr codec in ``ebcc_tpu_torch.api``;
+``torch.profiler`` traces in ``ebcc_tpu_torch.utils.profiling``), and
+reads and writes the reference codec's EBCC/EBCK streams
+(``ebcc_tpu_torch.compat``, on the host, as in the JAX package).  It covers every residual mode of
 the codec, encode and decode: rate mode (RESIDUAL_NONE, the default), the
 error-bounded modes (MAX_ERROR, RELATIVE_ERROR, POINTWISE_RELATIVE_ERROR,
 with ``allow_nan``, intra or ``temporal``) and lossless mode.  The wavelet

@@ -4,8 +4,13 @@ The port's counterpart of ``ebcc_tpu/api/hdf5.py`` route 1: the container
 is stored as an opaque uint8 dataset with its shape and format in
 attributes, readable with stock ``h5py`` and no plugin.  The attribute
 prefix stays ``ebcc_tpu``, so a dataset written by either package loads
-with the other.  (Route 2 of the JAX module, the native HDF5 filter
-plugin, is not part of the port.)  ``h5py`` is imported by the caller's
+with the other.  Route 2 of the JAX module, the native HDF5 filter
+plugin (filter id 33030: datasets chunked as frames, compressed by HDF5
+itself), is the port's ``libebcc_h5filter.so`` in the directory
+:func:`ebcc_tpu_torch.native.plugin_dir` returns; name it in
+``HDF5_PLUGIN_PATH`` (and the JAX package's plugin directory not), and
+give ``h5py`` the filter of :class:`~.filter_wrapper.EBCC_Filter`.
+:mod:`.xarray_io` wires it up.  ``h5py`` is imported by the caller's
 ``group``; this module imports nothing of it.
 """
 

@@ -50,12 +50,13 @@ Native routing: ``EBCC_ENCODE_BACKEND`` / ``EBCC_DECODE_BACKEND`` =
 ``native`` (or ``host``) sends ``encode``, ``encode_chunked`` (and so
 ``encode_chunked_compat``), ``decode``, ``decode_chunked`` and
 ``decode_chunked_region`` to the port's copy of the host C++ codec, which
-needs zstd to build and raises ``RuntimeError`` when it cannot be built.
+links ``libzstd.so.1`` and raises ``RuntimeError`` when it cannot be
+built.
 Unset or ``auto`` chooses from a link probe (:mod:`.routing`), and stays on
 the device path where the host codec cannot be built.
 
-Reference-format streams (EBCC/EBCK) raise ``NotImplementedError`` naming
-the ROADMAP item that adds them.
+Reference-format streams (EBCC/EBCK) are decoded on the host by
+:mod:`ebcc_tpu_torch.compat`, as the JAX package's ``decode`` does.
 """
 
 from __future__ import annotations
@@ -112,12 +113,6 @@ def _max_safe_batch(chunk_numel: int) -> int:
     """Largest batch whose sparse index space (2 layers x B x chunk
     coefficients) stays within int32."""
     return max(1, (2 ** 31 - 1) // (2 * max(1, chunk_numel)))
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not yet ported to ebcc_tpu_torch (ROADMAP Queue 1 "
-        f"item {item})")
 
 
 def _temporal_active(config: CodecConfig, n_frames: int) -> bool:
@@ -1830,13 +1825,17 @@ def _decode_device_batch(streams: List[bytes], device):
 def decode(buf: bytes, device="cuda") -> np.ndarray:
     """Decode one ETPU stream -> (n_frames, h, w) float32, on ``device``
     (the CUDA card unless ``device="cpu"``).  An ETPK container goes to
-    :func:`decode_chunked`, as in the reference."""
+    :func:`decode_chunked`, as in the reference.  A reference-format stream
+    (EBCC frame or EBCK container) goes to the legacy reader,
+    :func:`ebcc_tpu_torch.compat.decode`, which works on the host (J2K
+    through Pillow, SPIHT and zstd in C) and returns what the JAX package
+    returns: the flattened frame, or the container's N-D array."""
     dev = resolve_device(device)
     if buf[:4] == stream.MAGIC_CHUNKED:
         return decode_chunked(buf, device=dev)
     if buf[:4] in (b"EBCC", b"EBCK"):
-        raise _not_ported("reference-format (EBCC/EBCK) streams",
-                          "5, surfaces")
+        from .. import compat
+        return compat.decode(buf)
     if _native_routed("decode", dev):
         header, _, _ = stream.split_frame_stream(buf)
         return native.native_decode(buf).reshape(

@@ -1,5 +1,5 @@
 /* ebcc_tpu_torch: the port's copy of ebcc_tpu/native/etpu_codec.cc, unchanged below
- * this line; CAB bytes and stream bytes must stay the original's. */
+ * this line but for zstd_decls.h in place of <zstd.h>; same bytes. */
 /* Portable C++ ETPU/ETPK codec — see etpu_codec.h for the role statement.
  *
  * Algorithm parity with the JAX encoder (ebcc_tpu/core/kernels.py), itself
@@ -13,7 +13,7 @@
 
 #include "etpu_codec.h"
 
-#include <zstd.h>
+#include "zstd_decls.h"
 
 extern "C" size_t etpu_cab2_compress(const uint8_t *, size_t, int, int, int,
                                      int, int, uint8_t **);

@@ -4,22 +4,27 @@ The port's counterpart of ``ebcc_tpu/native/__init__.py``, with the same
 names and signatures: the CAB coders (entropy backends 2 and 4), the
 sparse packer and unpacker of the plane payloads, the Rice coders of the
 exchange (``rice_decode``, ``rice_decode_gaps_classed``,
-``rice_decode_classed``, ``rice_block_pack``), and the whole host codec
+``rice_decode_classed``, ``rice_block_pack``), the legacy SPIHT coder
+(``spiht_encode``, ``spiht_decode``) and the whole host codec
 (``native_encode``, ``native_encode_chunked``, ``native_decode``) that
 ``EBCC_ENCODE_BACKEND`` / ``EBCC_DECODE_BACKEND`` = ``native`` route to.
 
-Two libraries, built by :mod:`ebcc_tpu_torch.ops._build` at first use:
-``libebcc_host.so`` (the coders, the packer, the unpacker and the Rice
-coders; no dependency) and ``libebcc_native_codec.so`` (the host codec; links zstd,
-so only native routing needs it).  A library that cannot be built raises
-``RuntimeError``; nothing falls back.  ctypes releases the GIL around each
-call, so a thread pool runs the unpacker in parallel.
+Three libraries, built by :mod:`ebcc_tpu_torch.ops._build` at first use:
+``libebcc_host.so`` (the coders, the packer, the unpacker, the Rice and
+SPIHT coders; no dependency), ``libebcc_native_codec.so`` (the host codec;
+links ``libzstd.so.1``, so only native routing needs it) and the HDF5
+filter plugin (filter id 33030, as the JAX package's: a process's
+``HDF5_PLUGIN_PATH`` names one package's directory, :func:`plugin_dir`
+here).  A library that cannot be built raises ``RuntimeError``; nothing
+falls back.  ctypes releases the GIL around each call, so a thread pool
+runs the unpacker in parallel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import os
 
 import numpy as np
 
@@ -63,10 +68,16 @@ _libc_free = None
 
 def _host():
     """``libebcc_host.so``, built and bound on first use."""
-    global _host_lib, _libc_free
-    if _host_lib is not None:
-        return _host_lib
-    lib = _build.load_host("ebcc_host")
+    global _host_lib
+    if _host_lib is None:
+        _host_lib = bind_host(_build.load_host("ebcc_host"))
+    return _host_lib
+
+
+def bind_host(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the functions of a loaded ``libebcc_host.so`` (either build,
+    PGO or plain) and return it."""
+    global _libc_free
     for fn in ("etpu_cab_compress", "etpu_cab2_compress"):
         getattr(lib, fn).restype = ctypes.c_size_t
         getattr(lib, fn).argtypes = _COMPRESS_ARGS
@@ -95,12 +106,22 @@ def _host():
     lib.etpu_rice_block_pack.argtypes = [
         _I64, _I32, ctypes.c_size_t, ctypes.c_int, _U32, _U16, _U16, _U8,
         _I32]
+    lib.etpu_has_spiht.restype = ctypes.c_int
+    lib.etpu_has_spiht.argtypes = []
+    lib.etpu_spiht_encode.restype = ctypes.c_size_t
+    lib.etpu_spiht_encode.argtypes = [
+        _F32, ctypes.c_size_t, ctypes.c_size_t, ctypes.c_size_t,
+        ctypes.c_size_t, ctypes.POINTER(_U8P)]
+    lib.etpu_spiht_decode.restype = ctypes.c_int
+    lib.etpu_spiht_decode.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, _F32, ctypes.c_size_t,
+        ctypes.c_size_t, ctypes.c_size_t]
     # The coders return buffers from malloc; this library has no etpu_free.
-    libc = ctypes.CDLL(ctypes.util.find_library("c"))
-    libc.free.argtypes = [ctypes.c_void_p]
-    libc.free.restype = None
-    _libc_free = libc.free
-    _host_lib = lib
+    if _libc_free is None:
+        libc = ctypes.CDLL(ctypes.util.find_library("c"))
+        libc.free.argtypes = [ctypes.c_void_p]
+        libc.free.restype = None
+        _libc_free = libc.free
     return lib
 
 
@@ -120,7 +141,7 @@ def load_codec():
     except RuntimeError as e:
         raise RuntimeError(
             "native routing needs libebcc_native_codec.so, which links zstd "
-            "(zstd.h and libzstd); it could not be built: " + str(e)) from e
+            "(libzstd.so.1); it could not be built: " + str(e)) from e
     lib.etpu_decode.restype = ctypes.c_size_t
     lib.etpu_decode.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t,
@@ -134,6 +155,15 @@ def load_codec():
     lib.etpu_free.restype = None
     _codec_lib = lib
     return lib
+
+
+def plugin_dir() -> str:
+    """The directory of the port's HDF5 filter plugin (filter id 33030),
+    built on first use, for ``HDF5_PLUGIN_PATH`` or ``h5py.h5pl.append``.
+    It holds the plugin alone: HDF5 opens every library of a plugin
+    directory.  The JAX package's plugin has the same filter id, so a
+    process names one of the two directories."""
+    return os.path.dirname(_build.build_host(_build.PLUGIN))
 
 
 def _take(out, n: int, free) -> bytes:
@@ -341,3 +371,31 @@ def rice_block_pack(idx: np.ndarray, vals: np.ndarray, block: int = 128):
     # offset (the window's first word is clipped to nw - 3).
     words[used:used + 3] = 0
     return words[:used + 3].copy(), lens_g, lens_v, k_packed, base_pos, nb
+
+
+def spiht_encode(norm: np.ndarray, trunc_bits: int = 0,
+                 num_stages: int = 3) -> bytes:
+    """Encode a [0,1]-normalized 2-D residual into a legacy SPIHT "IMS"
+    stream (reference-format interop; csrc/host/spiht_coder.cc)."""
+    lib = _host()
+    norm = np.ascontiguousarray(norm, dtype=np.float32)
+    if norm.ndim != 2:
+        raise ValueError("spiht_encode expects a 2-D frame")
+    out = _U8P()
+    n = lib.etpu_spiht_encode(norm, norm.shape[0], norm.shape[1],
+                              trunc_bits, num_stages, ctypes.byref(out))
+    if n == 0:
+        raise RuntimeError("SPIHT encode failed (bad dims or input range)")
+    return _take(out, n, _libc_free)
+
+
+def spiht_decode(blob: bytes, height: int, width: int,
+                 num_bits: int) -> np.ndarray:
+    """Decode a legacy SPIHT "IMS" stream (possibly truncated) back to the
+    [0,1]-normalized residual frame."""
+    lib = _host()
+    out = np.zeros((height, width), np.float32)
+    rc = lib.etpu_spiht_decode(blob, len(blob), out, height, width, num_bits)
+    if rc != 0:
+        raise ValueError(f"corrupt SPIHT stream (code {rc})")
+    return out

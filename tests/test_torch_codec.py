@@ -249,7 +249,30 @@ def test_native_routing(monkeypatch, kind):
 @pytest.mark.parametrize("magic", [b"EBCC", b"EBCK"])
 def test_reference_only_streams_raise(magic):
     """The original codec's streams are dispatched on their magic, as the
-    reference does, and are not ported yet (ETPK containers are:
-    test_torch_chunked.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    reference does, to the port's legacy reader (``ebcc_tpu_torch.compat``;
+    whole streams: test_torch_legacy.py), which refuses a malformed one as
+    the JAX package's does."""
+    from ebcc_tpu.compat import LegacyFormatError as JaxLegacyFormatError
+    from ebcc_tpu_torch.compat import LegacyFormatError
+    with pytest.raises(LegacyFormatError, match="unsupported"):
         et.decode(magic + bytes(96), device="cpu")
+    with pytest.raises(JaxLegacyFormatError, match="unsupported"):
+        ebcc_tpu.decode(magic + bytes(96))
+
+
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_libzstd_streams_meet_reference(streams, name, monkeypatch):
+    """Without ``zstandard`` (the card's machine) the port codes ZSTD
+    payloads through ``libzstd.so.1`` with ``ctypes``: the streams decode
+    with the JAX package within the bound, and their size is within 1% of
+    the JAX package's stream (zstd versions differ in bytes, not in
+    format)."""
+    from ebcc_tpu_torch.core import entropy as tentropy
+    monkeypatch.setattr(tentropy, "_zstd", None)
+    assert tentropy._libzstd is not None
+    x, s_jax, _ = streams[name]
+    _, cfg = _configs(x.shape)
+    s = et.encode(x, cfg, device="cpu")
+    assert tstream.split_frame_stream(s)[0].entropy == tentropy.BACKEND_ZSTD
+    assert np.abs(ebcc_tpu.decode(s) - x).max() <= ERROR
+    assert abs(len(s) - len(s_jax)) <= 0.01 * len(s_jax)

@@ -171,11 +171,12 @@ def test_truncated_partial_payload_raises(streams):
 
 @pytest.mark.parametrize("base_cr", [4, 30])
 def test_store_payloads(monkeypatch, base_cr, base_test_data):
-    """Without zstandard installed the payloads are STORE: the budget holds
-    (at base_cr 30 it takes less than one plane, at 4 several), and both
-    decoders agree on the stream."""
+    """With no zstd binding (neither zstandard nor libzstd.so.1) the
+    payloads are STORE: the budget holds (at base_cr 30 it takes less than
+    one plane, at 4 several), and both decoders agree on the stream."""
     from ebcc_tpu_torch.core import entropy as tentropy
     monkeypatch.setattr(tentropy, "_zstd", None)
+    monkeypatch.setattr(tentropy, "_libzstd", None)
     x = _data(base_test_data, (1, 96, 160))
     _, cfg = _configs(x.shape, base_cr)
     blob = et.encode(x, cfg, device="cpu")
