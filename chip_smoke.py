@@ -174,6 +174,14 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     streams byte-identical, ``assemble+zstd`` and ``dec: entropy decode``
     of each run and both build times; (e) ``compat.reference_bin``, which
     raises ``ReferenceUnavailable`` without the reference's sources.
+16. The port's bench (``ebcc_tpu_torch.bench``, the JAX package's
+    ``bench.py`` on the card): ``bench.run(device="cuda", frames=8,
+    reps=1)`` with every section on; its JSON line printed on a line of its
+    own; every error field within its bound, every rate and ratio positive
+    (the reference binary's fields ``null``), ``device`` naming the card
+    and its power limit, and K1, K2 and X1 launched in the headline
+    section (each wrapper's count; the launches and seconds of every
+    section go to stderr).
 
 Phases 3, 5, 7, 8, 9 and 12 print the total stream bytes or the budget use of
 their roundtrips, and phases 3, 8 and 9 the launches of each kernel in the
@@ -206,45 +214,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = None
 
 
-def load_frames(n, h=H, w=W):
-    """Synthetic ERA5-shaped frames of h x w, seed 0 (same generator as
-    bench.py at 721x1440)."""
-    path = os.environ.get("EBCC_ERA5_FRAME")
-    if (h, w) == (H, W) and path and os.path.exists(path):
-        base = np.load(path).astype(np.float32)
-    else:
-        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-        base = (260 + 25 * np.sin(yy / h * np.pi) * np.cos(xx / w * 2 * np.pi)
-                ).astype(np.float32)
-    rng = np.random.default_rng(0)
-    frames = []
-    for i in range(n):
-        f = base + 0.3 * i + smooth_field(rng, 1.0, h, w) + rng.normal(
-            scale=0.02, size=base.shape)
-        frames.append(f.astype(np.float32))
-    return np.stack(frames)
-
-
-def smooth_field(rng, amplitude, h=H, w=W):
-    """An h x w field interpolated bilinearly from a 24 x 46 normal grid."""
-    coarse = rng.normal(scale=amplitude, size=(24, 46)).astype(np.float32)
-    yi = np.linspace(0, 23, h)
-    xi = np.linspace(0, 45, w)
-    y0 = np.clip(yi.astype(int), 0, 22)
-    x0 = np.clip(xi.astype(int), 0, 44)
-    fy = (yi - y0)[:, None].astype(np.float32)
-    fx = (xi - x0)[None, :].astype(np.float32)
-    c00 = coarse[y0][:, x0]
-    c01 = coarse[y0][:, x0 + 1]
-    c10 = coarse[y0 + 1][:, x0]
-    c11 = coarse[y0 + 1][:, x0 + 1]
-    return (c00 * (1 - fy) * (1 - fx) + c01 * (1 - fy) * fx
-            + c10 * fy * (1 - fx) + c11 * fy * fx)
-
-
 def land_mask(fraction=0.3):
     """A fixed H x W "land" mask of about ``fraction`` of the samples: a
     smooth field (seed 0) below its quantile."""
+    from ebcc_tpu_torch.bench import smooth_field
     field = smooth_field(np.random.default_rng(0), 1.0)
     return field < np.quantile(field, fraction)
 
@@ -2398,6 +2371,42 @@ def phase_reference_bin(card):
           f"{rb.REFERENCE_SRC}")
 
 
+def phase_bench(card):
+    """Phase 16: every section of the port's bench at 8 frames of
+    721x1440, one timed headline rep."""
+    from ebcc_tpu_torch import bench
+    launches = {}
+    t0 = time.perf_counter()
+    result = bench.run(device="cuda", frames=8, reps=1, launches=launches)
+    wall = time.perf_counter() - t0
+    print(json.dumps(result))
+    print(f"bench on {card}: {wall:.2f} s, sections {sorted(launches)}, "
+          f"headline launches {launches['headline']}")
+    if result["max_error"] > result["error_target"]:
+        raise AssertionError(f"bench max error {result['max_error']}")
+    ref_keys = ("ref_binary_pts_per_s", "ref_binary_cr",
+                "ref_binary_max_error", "vs_ref_binary",
+                "cab_point_vs_ref_binary", "cab_point_cr_vs_ref",
+                "baseline_point_backend", "baseline_point_pts_per_s",
+                "baseline_point_compression_ratio")
+    for k, v in result.items():
+        if k in ref_keys:
+            continue
+        if v is None:
+            raise AssertionError(f"bench field {k} is null")
+        if ("pts_per_s" in k or "ratio" in k or "MBps" in k
+                or k in ("value", "vs_baseline", "vs_measured_serial")):
+            if not (np.isfinite(v) and v > 0):
+                raise AssertionError(f"bench field {k} = {v}")
+    if card not in result["device"]:
+        raise AssertionError(f"bench device {result['device']!r} does not "
+                             f"name {card!r}")
+    head = launches["headline"]
+    for name in ("dwt2d_quantize", "idwt2d_dequant", "rice_unpack_qflat"):
+        if not head.get(name):
+            raise AssertionError(f"bench headline launched no {name}")
+
+
 def rank_worker(args):
     """One rank of phase 13b or 13c (this script run with ``--worker``)."""
     import torch
@@ -2475,6 +2484,7 @@ def main():
     import ebcc_tpu_torch as et
     from ebcc_tpu_torch import native
     from ebcc_tpu_torch.ops import _build
+    from ebcc_tpu_torch.bench import load_frames
     from ebcc_tpu_torch.ops import dwt_hopper as dh
 
     # ---- phase 1: card and build ----
@@ -2590,6 +2600,9 @@ def main():
     phase_native_built(_build.BUILD_SECONDS, routed)
     phase_pgo(torch, et, frames, card)
     phase_reference_bin(card)
+
+    # ---- phase 16: the port's bench ----
+    phase_bench(card)
 
     src = "ebcc_tpu_torch/csrc/dwt97.cu"
     kernels = []

@@ -92,6 +92,7 @@ def main():
         "smoke_helpers", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    from ebcc_tpu_torch import bench
     from ebcc_tpu_torch.ops import dwt_hopper as dh
     if not os.path.abspath(dh.__file__).startswith(root):
         raise RuntimeError(f"imported {dh.__file__}, not from {root}")
@@ -101,8 +102,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     cs.f32_ops_per_s(torch)
-    frames = cs.load_frames(4)
-    tall = cs.load_frames(4, cs.TALL_H, cs.TALL_W)
+    frames = bench.load_frames(4)
+    tall = bench.load_frames(4, cs.TALL_H, cs.TALL_W)
     result = {"root": root, "card": card, "rows": {}}
     gen = torch.Generator(device="cpu").manual_seed(0)
     for shape, src, valid in (((4, 1, 736, 1440), frames, (cs.H, cs.W)),

@@ -154,15 +154,19 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_ebcc_tpu():
+    scripts = sorted((PORT_ROOT.parent / "scripts").glob("torch_*.py"))
     sources = sorted(PORT_ROOT.rglob("*.py")) + [
-        PORT_ROOT.parent / "chip_smoke.py"]
+        PORT_ROOT.parent / "chip_smoke.py"] + scripts
     assert len(sources) > 10
     for sub in ("native", "parallel", "api"):
         assert PORT_ROOT / sub / "__init__.py" in sources
     for mod in ("core/transfer.py", "core/routing.py",
                 "ops/exchange_hopper.py", "compat/legacy.py", "compat/j2k.py",
-                "compat/reference_bin.py", "api/xarray_io.py"):
+                "compat/reference_bin.py", "api/xarray_io.py", "bench.py"):
         assert PORT_ROOT / mod in sources
+    for name in ("stream_bench", "scaling_bench", "compare_targets",
+                 "attribute_roundtrip", "kernel_times"):
+        assert PORT_ROOT.parent / "scripts" / f"torch_{name}.py" in scripts
     bad = []
     for path in sources:
         for mod in _imports(path):
