@@ -75,6 +75,7 @@ from .. import native
 from ..config import CodecConfig, EncodeOptions
 from ..device import resolve_device
 from ..utils.logging import TRACE, logger, set_level_from_env, trace
+from ..utils import timing
 from ..utils.timing import stage
 from . import entropy, kernels, routing, stream, transfer
 
@@ -297,8 +298,7 @@ def _on_device(xb, device):
     """A numpy batch slice uploaded to ``device`` (its bytes counted); a
     tensor as it is."""
     if isinstance(xb, np.ndarray):
-        transfer.count_up(xb.nbytes)
-        return torch.from_numpy(xb).to(device)
+        return transfer.upload(xb, device)
     return xb
 
 
@@ -1050,9 +1050,7 @@ def _split_small(flat: np.ndarray, small: dict) -> dict:
 
 def _fetch_small(small: dict) -> dict:
     """One device-to-host copy of every small encode output."""
-    flat = _pack_small(small).cpu().numpy()
-    transfer.count_down(flat.nbytes)
-    return _split_small(flat, small)
+    return _split_small(transfer.download(_pack_small(small)), small)
 
 
 def _rice_enabled() -> bool:
@@ -1111,11 +1109,9 @@ def _fetch_rice_pair(out, cap: int, key, nnz: int, hp: int, wp: int):
     pair buffer -> host (positions, values)."""
     words_dev, needed_dev = transfer.compact_rice_exchange(
         out["vals_comb"], out["sig_comb"].reshape(-1), cap=cap, hw=(hp, wp))
-    need = int(needed_dev)
-    transfer.count_down(4)
+    need = int(transfer.download(needed_dev))
     bound = min(transfer.rice_block_bucket(need), int(words_dev.shape[0]))
     head = transfer.sliced_get(words_dev[:bound]).view(np.uint32)
-    transfer.count_down(4 * bound)
     _exch_hint_put(key, nnz, need)
     return _decode_rice_pair_host(head, nnz, hp, wp)
 
@@ -1138,7 +1134,6 @@ def _fused_fetch_encode_outputs(out, small_dev, key, hint, b, d0, hp, wp):
                 hw=(hp, wp))
             head_dev = torch.cat([packed, words_dev[:bound]])
         n_small = packed.numel()
-        transfer.count_down(4 * (n_small + bound))
         with stage("enc: fused get"):
             flat = transfer.sliced_get(head_dev)
         outd = _split_small(flat[:n_small], small_dev)
@@ -1164,7 +1159,6 @@ def _fused_fetch_encode_outputs(out, small_dev, key, hint, b, d0, hp, wp):
             # the full word buffer on the device.
             hi = min(transfer.rice_block_bucket(need), max_words)
             tail = transfer.sliced_get(words_dev[bound:hi]).view(np.uint32)
-            transfer.count_down(tail.nbytes)
             head = np.concatenate([head, tail])
         _exch_hint_put(key, nnz, need)
         with stage("enc: fused host rice"):
@@ -1207,7 +1201,7 @@ def _fetch_encode_outputs(out: dict, b: int, d0: int, hp: int,
         return small
     if (_rice_enabled()
             and transfer.bucket_count(nnz) <= transfer.COMPACT_CAP_LIMIT):
-        with stage(f"enc: compact+rice fetch {nnz} vals"):
+        with stage("enc: compact+rice fetch"):
             idx, vals = _fetch_rice_pair(out, transfer.bucket_count(nnz),
                                          key, nnz, hp, wp)
         small["sparse"] = _SparseBatch(idx, vals, b, d0, hp, wp)
@@ -1215,9 +1209,8 @@ def _fetch_encode_outputs(out: dict, b: int, d0: int, hp: int,
     vals_comb = out["vals_comb"]
     with stage("enc: sparse fetch"):
         idx = torch.nonzero(vals_comb).reshape(-1)
-        vals = vals_comb[idx].cpu().numpy()
-        idx = idx.to(torch.int32).cpu().numpy()
-        transfer.count_down(idx.nbytes + vals.nbytes)
+        vals = transfer.download(vals_comb[idx])
+        idx = transfer.download(idx.to(torch.int32))
     small["sparse"] = _SparseBatch(idx, vals, b, d0, hp, wp)
     return small
 
@@ -1239,8 +1232,7 @@ def _encode_to_host(xb, config: CodecConfig, opts: EncodeOptions,
              and not _temporal_active(config, n_frames))
     u16 = _u16_batch(xb, config, opts) if intra else None
     if u16 is not None:
-        transfer.count_up(sum(a.nbytes for a in u16))
-        xq, minv, maxv = (torch.from_numpy(a).to(device) for a in (
+        xq, minv, maxv = (transfer.upload(a, device) for a in (
             u16[0].view(np.int16), u16[1], u16[2]))
     else:
         xb = _on_device(xb, device)
@@ -1285,16 +1277,18 @@ def _pipeline_encode_slices(slices, config: CodecConfig, opts: EncodeOptions,
                 len(slices) - 1)
     with ThreadPoolExecutor(max_workers=depth) as fetcher, \
             ThreadPoolExecutor(max_workers=2) as assembler:
-        futs = [fetcher.submit(run, s) for s in slices[:depth]]
+        futs = [timing.submit(fetcher, run, s) for s in slices[:depth]]
         asm = []
         for i, sl in enumerate(slices):
-            out_np = futs[i].result()
+            with stage("enc: wait worker"):
+                out_np = futs[i].result()
             if i + depth < len(slices):
-                futs.append(fetcher.submit(run, slices[i + depth]))
-            asm.append(assembler.submit(
-                _assemble_batch, out_np, config, opts, n_frames, h, w,
-                backend, sl.shape[0]))
-        return [s for f in asm for s in f.result()]
+                futs.append(timing.submit(fetcher, run, slices[i + depth]))
+            asm.append(timing.submit(
+                assembler, _assemble_batch, out_np, config, opts, n_frames,
+                h, w, backend, sl.shape[0]))
+        with stage("enc: wait worker"):
+            return [s for f in asm for s in f.result()]
 
 
 def encode(data: np.ndarray, config: CodecConfig,
@@ -1627,9 +1621,7 @@ def _decode_streams_device(streams: List[bytes], device):
 
 def _put(a: np.ndarray, device):
     """One host array uploaded to ``device``, its bytes counted."""
-    a = np.ascontiguousarray(a)
-    transfer.count_up(a.nbytes)
-    return torch.from_numpy(a).to(device)
+    return transfer.upload(np.ascontiguousarray(a), device)
 
 
 def _upload_chain(nnz: int, s: int) -> list:
@@ -1688,7 +1680,6 @@ def _upload_rice(idx, vals, scalars, device, kw):
     ints[nbk + 2 * ne] = idx.size
     buf[o:o + 4 * n_ints] = ints.view(np.uint8)
     buf[o + 4 * n_ints:] = _floats(scalars).reshape(-1).view(np.uint8)
-    transfer.count_up(buf.nbytes)
     with stage("dec: rice upload"):
         buf_dev = transfer.sliced_put(buf, device)
     b, d0, hp, wp = kw["grid_shape"]
@@ -1731,7 +1722,6 @@ def _upload_nibble(idx, vals, scalars, device, kw):
     ints[g32c + v32c + 2 * ne] = idx.size
     buf[n_bytes:n_bytes + 4 * n_ints] = ints.view(np.uint8)
     buf[n_bytes + 4 * n_ints:] = _floats(scalars).reshape(-1).view(np.uint8)
-    transfer.count_up(buf.nbytes)
     return kernels.decode_batch_sparse_nibble_fused(
         transfer.sliced_put(buf, device), cap=cap, **kw)
 
@@ -1809,8 +1799,7 @@ def _decode_streams(streams: List[bytes], device) -> np.ndarray:
 def _finish_host(out, const_mask, const_val, nan_masks) -> np.ndarray:
     """Fetch a decoded batch and finish it on the host: constant chunks
     filled, NaNs restored."""
-    out = out.cpu().numpy()
-    transfer.count_down(out.nbytes)
+    out = transfer.download(out)
     if const_mask.any():
         out[const_mask] = const_val[const_mask, None, None, None]
     return _apply_nan_masks_host(out, nan_masks)
@@ -1889,12 +1878,13 @@ def decode_frames_device(streams: List[bytes],
     depth = min(2, len(batches))
     outs = []
     with ThreadPoolExecutor(max_workers=depth) as worker:
-        futs = [worker.submit(_decode_device_batch, bt, dev)
+        futs = [timing.submit(worker, _decode_device_batch, bt, dev)
                 for bt in batches[:depth]]
         for i in range(len(batches)):
-            outs.append(futs[i].result())
+            with stage("dec: wait worker"):
+                outs.append(futs[i].result())
             if i + depth < len(batches):
-                futs.append(worker.submit(_decode_device_batch,
+                futs.append(timing.submit(worker, _decode_device_batch,
                                           batches[i + depth], dev))
     return torch.cat(outs, dim=0)
 
@@ -1944,15 +1934,17 @@ def roundtrip_frames_device(x, config: CodecConfig,
     posters = int(os.environ.get("EBCC_PIPELINE_POSTERS", "2"))
     with ThreadPoolExecutor(max_workers=depth) as fetcher, \
             ThreadPoolExecutor(max_workers=max(1, posters)) as poster:
-        futs = [fetcher.submit(run, s) for s in slices[:depth]]
+        futs = [timing.submit(fetcher, run, s) for s in slices[:depth]]
         post_futs = []
         for i, sl in enumerate(slices):
-            out_np = futs[i].result()
+            with stage("enc: wait worker"):
+                out_np = futs[i].result()
             if i + depth < len(slices):
-                futs.append(fetcher.submit(run, slices[i + depth]))
-            post_futs.append(poster.submit(post_batch, i, out_np,
+                futs.append(timing.submit(fetcher, run, slices[i + depth]))
+            post_futs.append(timing.submit(poster, post_batch, i, out_np,
                                            sl.shape[0]))
-        results = [f.result() for f in post_futs]
+        with stage("dec: wait worker"):
+            results = [f.result() for f in post_futs]
     streams_out = [s for streams, _ in results for s in streams]
     return streams_out, torch.cat([d for _, d in results], dim=0)
 
@@ -2053,18 +2045,20 @@ def encode_chunked(data: np.ndarray, config: CodecConfig,
     ``config.dims``, edge chunks padded by replication, every chunk coded
     as its own stream, ``max_batch`` chunks per device batch (uploaded one
     batch at a time).  The bytes do not depend on ``max_batch``."""
-    dev = resolve_device(device)
-    routed = _native_routed("encode", dev, opts)
-    set_level_from_env()
-    opts = opts or EncodeOptions.from_env()
-    chunks, header = _container_chunks(data, config)
-    if routed:
-        streams = _native_encode_chunks(chunks, config, header.chunk_dims)
-    else:
-        streams = _encode_chunk_set(
-            chunks, config.per_chunk(header.chunk_dims), opts, max_batch,
-            dev)
-    return stream.pack_chunked(header, streams)
+    with stage("request: encode_chunked"):
+        dev = resolve_device(device)
+        routed = _native_routed("encode", dev, opts)
+        set_level_from_env()
+        opts = opts or EncodeOptions.from_env()
+        chunks, header = _container_chunks(data, config)
+        if routed:
+            streams = _native_encode_chunks(chunks, config,
+                                            header.chunk_dims)
+        else:
+            streams = _encode_chunk_set(
+                chunks, config.per_chunk(header.chunk_dims), opts,
+                max_batch, dev)
+        return stream.pack_chunked(header, streams)
 
 
 def _container_header(config: CodecConfig) -> stream.ChunkedHeader:
@@ -2159,17 +2153,20 @@ def decode_chunked(buf: bytes, max_batch: int = DEFAULT_MAX_BATCH,
     CUDA card unless ``device="cpu"``), ``max_batch`` chunks per device
     batch.  A plain ETPU stream goes to :func:`decode`, as in the
     reference (ebcc_codec.c:1326-1329)."""
-    dev = resolve_device(device)
-    if buf[:4] != stream.MAGIC_CHUNKED:
-        return decode(buf, device=dev)
-    routed = _native_routed("decode", dev)
-    header, chunk_streams = stream.iter_chunked(buf)
-    counts = _container_grid(header)
-    if routed:
-        return _native_decode_chunks(header, chunk_streams, counts,
-                                     header.dims)
-    return _decode_chunk_subset(header, chunk_streams, counts, header.dims,
-                                _decode_max_batch(header, max_batch), dev)
+    with stage("request: decode_chunked"):
+        dev = resolve_device(device)
+        if buf[:4] != stream.MAGIC_CHUNKED:
+            return decode(buf, device=dev)
+        routed = _native_routed("decode", dev)
+        header, chunk_streams = stream.iter_chunked(buf)
+        counts = _container_grid(header)
+        if routed:
+            return _native_decode_chunks(header, chunk_streams, counts,
+                                         header.dims)
+        return _decode_chunk_subset(header, chunk_streams, counts,
+                                    header.dims,
+                                    _decode_max_batch(header, max_batch),
+                                    dev)
 
 
 def _region_bounds(region, dims):
@@ -2263,11 +2260,13 @@ def _decode_chunk_arrays(chunk_streams, max_batch, device) -> np.ndarray:
                for s in range(0, len(chunk_streams), max_batch)]
     decoded = []
     with ThreadPoolExecutor(max_workers=1) as worker:
-        fut = worker.submit(_decode_streams_device, batches[0], device)
+        fut = timing.submit(worker, _decode_streams_device, batches[0],
+                            device)
         for i in range(len(batches)):
-            parts = fut.result()
+            with stage("dec: wait worker"):
+                parts = fut.result()
             if i + 1 < len(batches):
-                fut = worker.submit(_decode_streams_device,
+                fut = timing.submit(worker, _decode_streams_device,
                                     batches[i + 1], device)
             with stage("dec: output fetch"):
                 decoded.append(_finish_host(*parts))

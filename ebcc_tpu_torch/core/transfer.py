@@ -32,7 +32,11 @@ disjoint-bit scatter-adds never carry, so the sums are the reference's
 ORs.  PyTorch has no popcount; a 256-entry table gather stands in, as the
 reference's bit select already does.  Every device function takes tensors
 on any device and allocates on theirs; nothing here moves data between
-devices except :func:`sliced_get` and :func:`sliced_put`.
+devices except the link helpers (:func:`upload`, :func:`download`,
+:func:`sliced_get`, :func:`sliced_put`), which count every byte they move
+in ``LINK_STATS`` and, with stage spans on (``utils.timing``), time the copy
+in a ``link: up`` / ``link: down`` span after waiting for the device's
+queued work in a ``device: wait`` span.
 """
 
 from __future__ import annotations
@@ -44,9 +48,12 @@ import threading
 import numpy as np
 import torch
 
+from ..utils import timing
+from ..utils.timing import stage
+
 # Link-byte accounting: every exchange transfer reports its payload size
-# here, so a run can put its wall time beside the bytes on the link.  The
-# pipelined paths count from several worker threads, hence the lock.
+# here, inside the span that times its copy.  The pipelined paths count
+# from several worker threads, hence the lock.
 LINK_STATS = {"up": 0, "down": 0}
 _LINK_LOCK = threading.Lock()
 
@@ -65,6 +72,35 @@ def reset_link_stats() -> None:
     with _LINK_LOCK:
         LINK_STATS["up"] = 0
         LINK_STATS["down"] = 0
+
+
+def _device_wait(device) -> None:
+    """With spans on, before a blocking copy: the device's queued work
+    waited for in a span of its own, so that the link span after it times
+    the copy alone (on the CPU the span holds nothing)."""
+    with stage("device: wait"):
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """One host array copied to ``device``, its bytes counted."""
+    device = torch.device(device)
+    if timing.ENABLED:
+        _device_wait(device)
+    with stage("link: up"):
+        count_up(a.nbytes)
+        return torch.from_numpy(a).to(device)
+
+
+def download(t: torch.Tensor) -> np.ndarray:
+    """One tensor copied to the host, its bytes counted."""
+    if timing.ENABLED:
+        _device_wait(t.device)
+    with stage("link: down"):
+        out = t.cpu().numpy()
+        count_down(out.nbytes)
+        return out
 
 
 # Above this compacted-pair capacity the compact exchange stops: its word
@@ -128,31 +164,41 @@ def _slice_count(nbytes: int) -> int:
 
 
 def sliced_get(arr) -> np.ndarray:
-    """Fetch a 1-D tensor to the host as a few concurrent slice copies;
-    equal to ``arr.cpu().numpy()``, only the copy schedule differs."""
+    """Fetch a 1-D tensor to the host as a few concurrent slice copies,
+    its bytes counted; equal to :func:`download`, only the copy schedule
+    differs."""
     nbytes = arr.numel() * arr.element_size()
     k = _slice_count(nbytes)
     if k <= 1:
-        return arr.cpu().numpy()
-    n = int(arr.shape[0])
-    step = -(-n // k)
-    parts = [arr[s:s + step] for s in range(0, n, step)]
-    got = list(_xfer_pool().map(lambda p: p.cpu().numpy(), parts))
-    return np.concatenate(got)
+        return download(arr)
+    if timing.ENABLED:
+        _device_wait(arr.device)
+    with stage("link: down"):
+        count_down(nbytes)
+        n = int(arr.shape[0])
+        step = -(-n // k)
+        parts = [arr[s:s + step] for s in range(0, n, step)]
+        got = list(_xfer_pool().map(lambda p: p.cpu().numpy(), parts))
+        return np.concatenate(got)
 
 
 def sliced_put(buf: np.ndarray, device):
     """Upload a 1-D host array to ``device`` as concurrent slice copies,
-    joined there by one concatenation."""
+    joined there by one concatenation, its bytes counted."""
     k = _slice_count(buf.nbytes)
     if k <= 1:
-        return torch.from_numpy(buf).to(device)
-    n = buf.shape[0]
-    step = -(-n // k)
-    parts = [buf[s:s + step] for s in range(0, n, step)]
-    devs = list(_xfer_pool().map(
-        lambda p: torch.from_numpy(p).to(device), parts))
-    return torch.cat(devs)
+        return upload(buf, device)
+    device = torch.device(device)
+    if timing.ENABLED:
+        _device_wait(device)
+    with stage("link: up"):
+        count_up(buf.nbytes)
+        n = buf.shape[0]
+        step = -(-n // k)
+        parts = [buf[s:s + step] for s in range(0, n, step)]
+        devs = list(_xfer_pool().map(
+            lambda p: torch.from_numpy(p).to(device), parts))
+        return torch.cat(devs)
 
 
 def bucket_count(n: int) -> int:
