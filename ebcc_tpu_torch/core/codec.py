@@ -1962,17 +1962,29 @@ def _chunk_grid(dims, chunk_dims):
 
 def _gather_chunks(data: np.ndarray, chunk_dims, counts) -> np.ndarray:
     """Every chunk of the grid, in chunk-linear order, with partial edge
-    chunks padded by replicating the edge (clamped indices; parity:
-    copy_chunk_from_data_padded, ebcc_codec.c:339-351)."""
-    idx = [np.minimum(np.arange(n)[:, None] * c + np.arange(c)[None, :],
-                      d - 1)
-           for d, c, n in zip(data.shape, chunk_dims, counts)]
-    g = data[
-        idx[0][:, None, None, :, None, None],
-        idx[1][None, :, None, None, :, None],
-        idx[2][None, None, :, None, None, :],
-    ]  # (n0, n1, n2, c0, c1, c2)
-    return g.reshape(-1, *chunk_dims)
+    chunks padded by replicating the edge (parity:
+    copy_chunk_from_data_padded, ebcc_codec.c:339-351, whose clamped
+    indices are ``np.pad``'s edge mode).
+
+    Chunks that span both trailing axes of a writable C-contiguous array
+    with no padding are a view of ``data`` (the per-frame chunking of the
+    HDF5 filter); every other grid is one strided copy, the inverse of
+    :func:`_scatter_chunks`, after the edge padding.  A read-only input is
+    copied, so that no tensor is made over memory it may not write."""
+    (n0, n1, n2), (c0, c1, c2) = counts, chunk_dims
+    if (data.shape == (n0 * c0, c1, c2) and n1 == n2 == 1
+            and data.flags.c_contiguous and data.flags.writeable):
+        return data.reshape(n0, c0, c1, c2)
+    with stage("chunked: gather copy"):
+        pad = [(0, n * c - d)
+               for d, c, n in zip(data.shape, chunk_dims, counts)]
+        if any(p for _, p in pad):
+            data = np.pad(data, pad, mode="edge")
+        g = np.ascontiguousarray(
+            data.reshape(n0, c0, n1, c1, n2, c2).transpose(0, 2, 4, 1, 3, 5))
+        if not g.flags.writeable:
+            g = g.copy()
+        return g.reshape(-1, c0, c1, c2)
 
 
 def _scatter_chunks(chunks: np.ndarray, dims, chunk_dims,
@@ -2074,7 +2086,8 @@ def _container_header(config: CodecConfig) -> stream.ChunkedHeader:
 def _container_chunks(data, config: CodecConfig):
     """``data`` on the chunk grid of ``config`` -> ((N, n_frames, h, w)
     host chunks in chunk-linear order, the container's header); warns when
-    edge padding adds over 10% to the values."""
+    edge padding adds over 10% to the values.  The chunks may be a view of
+    ``data`` (:func:`_gather_chunks`), so callers only read them."""
     data = np.asarray(data, dtype=np.float32).reshape(config.dims)
     header = _container_header(config)
     total = int(np.prod(config.dims))

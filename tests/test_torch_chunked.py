@@ -26,11 +26,16 @@ every mode (rate, MAX_ERROR, RELATIVE_ERROR, POINTWISE_RELATIVE_ERROR with
 
 Region decodes equal a crop of the full decode bit for bit, and only the
 intersecting chunks reach the decode.  Malformed containers raise
-``StreamError`` where the JAX package raises.  Every port call passes
+``StreamError`` where the JAX package raises.  The port's gather equals
+the JAX package's clamped-index gather on per-frame, interior and padded
+grids, a view of the input where the grid allows one, and no encode route
+that gathers writes into the caller's array.  Every port call passes
 ``device="cpu"``.
 """
 
 import dataclasses
+import io
+import warnings
 
 import numpy as np
 import pytest
@@ -482,6 +487,134 @@ def test_compat_relative_container_meets_the_global_bound():
     for out in (et.decode_chunked(blob, device="cpu"),
                 ebcc_tpu.decode_chunked(blob)):
         assert np.abs(out - x).max() <= bound
+
+
+# grid -> (dims, chunk dims, layout of the input, whether the chunks are a
+# view of it).  "float64" and "strided" go through ``_container_chunks``.
+GATHER_GRIDS = {
+    "per_frame": ((8, 32, 40), (1, 32, 40), "c", True),
+    "one_chunk": ((3, 32, 40), (3, 32, 40), "c", True),
+    "interior": ((4, 64, 96), (2, 32, 32), "c", False),
+    "pad_frames": ((3, 32, 40), (2, 32, 40), "c", False),
+    "pad_rows": ((2, 72, 40), (1, 32, 40), "c", False),
+    "pad_cols": ((2, 32, 72), (1, 32, 32), "c", False),
+    "pad_all": (DIMS, CHUNK, "c", False),
+    "read_only": ((8, 32, 40), (1, 32, 40), "read_only", False),
+    "float64": ((8, 32, 40), (1, 32, 40), "float64", False),
+    "strided": ((8, 32, 40), (1, 32, 40), "strided", False),
+}
+
+
+def _gather_input(dims, layout, seed=0):
+    x = np.random.default_rng(seed).normal(size=dims).astype(np.float32)
+    if layout == "read_only":
+        x.flags.writeable = False
+    elif layout == "float64":
+        x = x.astype(np.float64)
+    elif layout == "strided":
+        wide = np.zeros((*dims[:2], 2 * dims[2]), np.float32)
+        wide[..., ::2] = x
+        x = wide[..., ::2]
+    return x
+
+
+@pytest.mark.parametrize("grid", list(GATHER_GRIDS))
+def test_gather_equals_the_clamped_index_gather(grid):
+    """The port's gather (a view, or edge padding and one strided copy)
+    equals the JAX package's clamped-index gather value for value; only
+    a writable C-contiguous input chunked along its leading axis alone is
+    a view."""
+    dims, chunk, layout, view = GATHER_GRIDS[grid]
+    x = _gather_input(dims, layout)
+    counts = tcodec._chunk_grid(dims, chunk)
+    want = jcodec._gather_chunks(np.asarray(x, np.float32), chunk, counts)
+    if layout in ("float64", "strided"):
+        cfg = et.CodecConfig(dims=dims, chunk_dims=chunk)
+        got, header = tcodec._container_chunks(x, cfg)
+        assert header.num_chunks == want.shape[0]
+    else:
+        got = tcodec._gather_chunks(x, chunk, counts)
+    assert got.dtype == np.float32 and got.flags.c_contiguous
+    np.testing.assert_array_equal(got.reshape(want.shape), want)
+    assert np.shares_memory(got, x) == view
+    assert got.flags.writeable
+
+
+FRAME = (1, *DIMS[1:])
+# (route:mode, source) of the encodes that gather chunks of the caller's
+# array: ``encode_chunked`` in each mode, the other routes once, and a
+# writable and a read-only memmap.
+UNTOUCHED_CASES = (
+    [(f"encode_chunked:{m}", "array") for m in MODES]
+    + [(r, "array") for r in ("native:max_error", "compat:relative",
+                              "sharded:max_error", "multihost:max_error",
+                              "legacy:max_error")]
+    + [(r, s) for r in ("encode_chunked:max_error",
+                        "compress_stream:max_error")
+       for s in ("memmap_r+", "memmap_r")])
+
+
+def _encode_route(route, x):
+    kind, mode = route.split(":")
+    # A temporal chunk needs frames: one chunk of the whole array (also a
+    # view); one-frame chunks elsewhere, as the HDF5 filter sets them.
+    chunk = DIMS if mode == "temporal" else FRAME
+    _, cfg, _, opts = configs(mode, chunk_dims=chunk)
+    if kind in ("encode_chunked", "native"):
+        return et.encode_chunked(x, cfg, opts, device="cpu")
+    if kind == "compat":
+        _, cfg, _, opts = configs(mode, chunk_dims=(0, 0, 0))
+        return et.encode_chunked_compat(x, cfg, opts, device="cpu")
+    if kind == "sharded":
+        from ebcc_tpu_torch.parallel import encode_chunked_sharded, make_mesh
+        return encode_chunked_sharded(x, cfg, opts,
+                                      mesh=make_mesh(device="cpu", n=2))
+    if kind == "multihost":
+        from ebcc_tpu_torch.parallel import multihost
+        return multihost.encode_owned_chunks(x, cfg, opts, 0, 1,
+                                             device="cpu")
+    if kind == "compress_stream":
+        from ebcc_tpu_torch import io as tio
+        out = io.BytesIO()
+        tio.compress_stream(x, cfg, out, opts, device="cpu")
+        return out.getvalue()
+    from ebcc_tpu_torch.compat import legacy
+    return legacy.encode_chunked(x, cfg)
+
+
+@pytest.mark.parametrize("route,source", UNTOUCHED_CASES)
+def test_encode_leaves_the_callers_array_untouched(route, source, tmp_path,
+                                                   monkeypatch):
+    """Every encode route that gathers reads the caller's array through the
+    gather's view and writes nothing into it: after the encode the array
+    is byte-equal to a copy taken before.  A read-only memmap takes the
+    copy and encodes with no warning."""
+    if route.startswith("legacy"):
+        from PIL import features
+        if not features.check("jpg_2000"):
+            pytest.skip("Pillow lacks JPEG2000 support")
+    if route.startswith("native"):
+        monkeypatch.setenv("EBCC_ENCODE_BACKEND", "native")
+    x = mode_data(route.split(":")[1])
+    if source != "array":
+        np.save(tmp_path / "slab.npy", x)
+        x = np.load(tmp_path / "slab.npy", mmap_mode=source[len("memmap_"):])
+    before = np.array(x, copy=True)
+    views = []
+    gather = tcodec._gather_chunks
+
+    def spy(data, chunk_dims, counts):
+        out = gather(data, chunk_dims, counts)
+        views.append(np.shares_memory(out, x))
+        return out
+    monkeypatch.setattr(tcodec, "_gather_chunks", spy)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        blob = _encode_route(route, x)
+    assert blob and views
+    assert all(views) if x.flags.writeable else not any(views)
+    np.testing.assert_array_equal(np.asarray(x).view(np.uint32),
+                                  before.view(np.uint32))
 
 
 if __name__ == "__main__":

@@ -209,6 +209,27 @@ def test_spans_on_wait_before_every_copy(spans_on, monkeypatch):
     assert timing.STATS["device: wait"][0] == copies
 
 
+@pytest.mark.parametrize("chunk,copied", [
+    ((1, 64, 96), False), ((1, 48, 64), True), ((3, 64, 96), True)],
+    ids=["per_frame", "padded", "padded_frames"])
+def test_gather_copy_opens_only_on_the_copy_path(spans_on, chunk, copied):
+    """``chunked: gather copy`` never opens where the chunk grid is a view
+    of the slab (one chunk per frame), and once per gather, inside it,
+    where edge padding makes the gather copy."""
+    x = frames()
+    cfg = et.CodecConfig(dims=x.shape, base_cr=30, chunk_dims=chunk,
+                         residual_mode=et.RESIDUAL_MAX_ERROR, error=0.5)
+    with timing.recording() as recs:
+        for _ in range(2):
+            et.encode_chunked(x, cfg, device="cpu")
+    assert timing.STATS["chunked: gather"][0] == 2
+    copies = [r for r in recs if r[0] == "chunked: gather copy"]
+    assert len(copies) == (2 if copied else 0)
+    assert timing.STATS.get("chunked: gather copy", [0])[0] == len(copies)
+    gathers = {r[1] for r in recs if r[0] == "chunked: gather"}
+    assert all(r[2] in gathers for r in copies)
+
+
 @pytest.mark.parametrize("env", [
     {}, {"EBCC_NO_RICE": "1"}, {"EBCC_NO_RICE_UPLOAD": "1"},
     {"EBCC_NO_RICE_UPLOAD": "1", "EBCC_NO_NIBBLE_UPLOAD": "1"},
