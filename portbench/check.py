@@ -1,26 +1,44 @@
 """What decides ``correct``: the numbers compared and their limits.
 
-Both limits are stated by the configuration or the format, not chosen here:
+A configuration's guarantee is a :class:`Bound`, which the harness derives
+from its codec settings as docs/FORMAT.md states it (``harness.bound_of``),
+not chosen here:
 
 * ``err_over_bound``: the largest error of a decoded array against the
-  slab the request carried, as a share of the configuration's guaranteed
-  bound in that chunk (MAX_ERROR: ``error``; RELATIVE_ERROR: ``error``
-  times the chunk's max - min).  docs/FORMAT.md: the bound holds for every
-  pairing of conforming encoder and decoder.  Limit 1.
+  slab the request carried, as a share of the guaranteed bound in that
+  chunk (``max_abs``: ``value``; ``chunk_relative``: ``value`` times the
+  chunk's max - min).  docs/FORMAT.md: the bound holds for every pairing
+  of conforming encoder and decoder.  Limit 1.
 * ``gap_over_range``: the largest gap between the program's decoded array
   and the reference's decode of the same container, per chunk, as a share
   of the chunk's stored ``maxval - minval``.  docs/FORMAT.md lets
-  conforming decoders differ by ``4e-6 * (maxval - minval)`` per intra
-  chunk.  Limit 4e-6.
+  conforming decoders differ by ``decoder_eps_rel`` of that range: 4e-6
+  per intra chunk, 2 * T * 4e-6 per temporal chunk of T frames.  Compared
+  in read cells.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-MAX_ERROR, RELATIVE_ERROR = "MAX_ERROR", "RELATIVE_ERROR"
 DECODER_EPS_REL = 4e-6
 LIMITS = {"err_over_bound": 1.0, "gap_over_range": DECODER_EPS_REL}
+
+
+@dataclasses.dataclass(frozen=True)
+class Bound:
+    """A configuration's guarantee: ``kind`` (``max_abs`` or
+    ``chunk_relative``), its ``value`` and the decoders' permitted gap
+    ``decoder_eps_rel``."""
+    kind: str
+    value: float
+    decoder_eps_rel: float = DECODER_EPS_REL
+
+    @property
+    def limits(self) -> dict:
+        return {**LIMITS, "gap_over_range": self.decoder_eps_rel}
 
 
 def chunks_of(arr, cdims):
@@ -38,27 +56,27 @@ def chunks_of(arr, cdims):
     return g.reshape(-1, *cdims)
 
 
-def chunk_bounds(slab_chunks, mode: str, error: float):
+def chunk_bounds(slab_chunks, bound: Bound):
     """The configuration's bound per chunk of the original slab."""
     n = slab_chunks.shape[0]
     flat = slab_chunks.reshape(n, -1)
-    if mode == MAX_ERROR:
-        return torch.full((n,), float(error), dtype=torch.float64,
+    if bound.kind == "max_abs":
+        return torch.full((n,), float(bound.value), dtype=torch.float64,
                           device=flat.device)
-    if mode == RELATIVE_ERROR:
+    if bound.kind == "chunk_relative":
         rng = (flat.amax(1) - flat.amin(1)).to(torch.float64)
-        return error * rng
-    raise ValueError(f"no bound for mode {mode}")
+        return bound.value * rng
+    raise ValueError(f"no pointwise bound of kind {bound.kind}")
 
 
-def err_over_bound(decoded, slab, cdims, mode: str, error: float) -> float:
+def err_over_bound(decoded, slab, cdims, bound: Bound) -> float:
     """max over chunks of max |decoded - slab| / bound."""
     if tuple(decoded.shape) != tuple(slab.shape):
         return float("inf")
     d = chunks_of(decoded, cdims)
     s = chunks_of(slab, cdims)
     err = (d - s).abs().reshape(d.shape[0], -1).amax(1).to(torch.float64)
-    return float((err / chunk_bounds(s, mode, error)).max())
+    return float((err / chunk_bounds(s, bound)).max())
 
 
 def gap_over_range(a, b, ranges, cdims) -> float:

@@ -11,6 +11,9 @@ change could be tempted to:
   containers in bfloat16; ``gap_over_range`` against the float32 reference
   and ``err_over_bound`` against the slab.
 
+The configuration is read as a run reads it (``harness.deployment``): its
+codec settings, field profile, bound and decoder file.
+
 Beside each control reading the sound one of the same slabs is printed
 (the program itself).  The program's own lower-precision upload, the u16
 upload (``EBCC_U16_UPLOAD``), takes its quantization slack off the target,
@@ -38,13 +41,15 @@ if __package__ in (None, ""):
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
 
-from portbench import check, harness, reference, traffic  # noqa: E402
+from portbench import check, harness, traffic  # noqa: E402
 
 
 def readings(workload: str, seed: int, slabs: int, device="cuda",
              grid=None) -> dict:
-    """{"sound": {number: worst}, "control": {number: worst}} over
-    ``slabs`` slabs of the cell's mix at the cell's size (or ``grid``)."""
+    """{"sound": {number: worst}, "control": {number: worst}, "limits":
+    {number: limit}} over ``slabs`` slabs of the cell's mix at the cell's
+    size (or ``grid``), with the configuration's codec settings, field
+    profile, bound and decoder (``harness.deployment``)."""
     import numpy as np
     import torch
     bench = harness.load_benchmark()
@@ -54,12 +59,13 @@ def readings(workload: str, seed: int, slabs: int, device="cuda",
     os.environ.update(config.get("env", {}))
     import ebcc_tpu_torch as et
     dev = torch.device(device)
-    h, w = grid or config["grid"]
-    cfg = harness.codec_config(et, config, mix["frames"], h, w)
+    dep = harness.deployment(et, config, mix["frames"], grid)
+    h, w = dep.grid
+    cfg, bound, decoder = dep.codec, dep.bound, dep.decoder
     cdims = cfg.chunk_dims
-    mode, error = config["residual_mode"], config["error"]
-    pool = traffic.make_slabs(seed, slabs, mix["frames"], h, w, dev)
-    out = {"sound": {}, "control": {}}
+    pool = traffic.make_slabs(seed, slabs, mix["frames"], h, w, dev,
+                              dep.field)
+    out = {"sound": {}, "control": {}, "limits": bound.limits}
 
     def keep(side, name, value):
         out[side][name] = max(out[side].get(name, 0.0), value)
@@ -67,34 +73,34 @@ def readings(workload: str, seed: int, slabs: int, device="cuda",
     for slab in pool:
         host = np.ascontiguousarray(slab.cpu().numpy())
         blob = et.encode_chunked(host, cfg, device=dev)
-        ref, ranges = reference.decode_container(blob, dev)
+        ref, ranges = decoder.decode_container(blob, dev)
         if mix["op"] == "write":
             keep("sound", "err_over_bound",
-                 check.err_over_bound(ref, slab, cdims, mode, error))
+                 check.err_over_bound(ref, slab, cdims, bound))
             low = slab.to(torch.bfloat16).to(torch.float32)
             blob_c = et.encode_chunked(np.ascontiguousarray(
                 low.cpu().numpy()), cfg, device=dev)
-            dec_c, _ = reference.decode_container(blob_c, dev)
+            dec_c, _ = decoder.decode_container(blob_c, dev)
             keep("control", "err_over_bound",
-                 check.err_over_bound(dec_c, slab, cdims, mode, error))
+                 check.err_over_bound(dec_c, slab, cdims, bound))
         else:
             port = torch.from_numpy(et.decode_chunked(blob, device=dev)).to(
                 dev)
             keep("sound", "gap_over_range",
                  check.gap_over_range(port, ref, ranges, cdims))
             keep("sound", "err_over_bound",
-                 check.err_over_bound(port, slab, cdims, mode, error))
-            low, _ = reference.decode_container(blob, dev, torch.bfloat16)
+                 check.err_over_bound(port, slab, cdims, bound))
+            low, _ = decoder.decode_container(blob, dev, torch.bfloat16)
             keep("control", "gap_over_range",
                  check.gap_over_range(low, ref, ranges, cdims))
             keep("control", "err_over_bound",
-                 check.err_over_bound(low, slab, cdims, mode, error))
+                 check.err_over_bound(low, slab, cdims, bound))
     return out
 
 
-def fails(control: dict) -> bool:
-    """Whether a control reading fails at least one of the limits."""
-    return any(not v <= check.LIMITS[n] for n, v in control.items())
+def fails(values: dict, limits: dict) -> bool:
+    """Whether a reading fails at least one of the limits."""
+    return any(not v <= limits[n] for n, v in values.items())
 
 
 def main(argv=None) -> int:
@@ -103,9 +109,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--slabs", type=int, default=4)
     args = ap.parse_args(argv)
-    sound, control = {}, {}
+    sound, control, limits = {}, {}, {}
     for seed in args.seeds:
         r = readings(args.workload, seed, args.slabs)
+        limits = r["limits"]
         print(json.dumps({"workload": args.workload, "seed": seed, **r}),
               flush=True)
         for n, v in r["sound"].items():
@@ -114,8 +121,8 @@ def main(argv=None) -> int:
             control[n] = min(control.get(n, float("inf")), v)
     print(json.dumps({"workload": args.workload, "seeds": len(args.seeds),
                       "largest_sound": sound, "smallest_control": control,
-                      "limits": check.LIMITS,
-                      "control_fails": fails(control)}), flush=True)
+                      "limits": limits,
+                      "control_fails": fails(control, limits)}), flush=True)
     return 0
 
 

@@ -21,6 +21,7 @@ of the window's requests, drawn from the seed, and ``correct`` is decided
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import fcntl
 import glob
@@ -132,16 +133,202 @@ def card_line() -> str:
         return "nvidia-smi unavailable"
 
 
-def codec_config(et, config: dict, frames: int, h: int, w: int):
-    mode = {"MAX_ERROR": et.RESIDUAL_MAX_ERROR,
-            "RELATIVE_ERROR": et.RESIDUAL_RELATIVE_ERROR}[
-                config["residual_mode"]]
-    chunk = tuple(config["chunk"])
-    if chunk[1:] != (h, w):
-        chunk = (chunk[0], h, w)
-    return et.CodecConfig(dims=(frames, h, w), base_cr=config["base_cr"],
-                          residual_mode=mode, error=config["error"],
-                          chunk_dims=chunk)
+REQUIRED_KEYS = ("grid", "chunk", "base_cr", "residual_mode")
+# The other keys a run reads, and those that only document the deployment.
+READ_KEYS = ("error", "codec", "field", "env", "reference")
+DOC_KEYS = ("name", "source", "deployment", "guarantee", "assumed")
+# CodecConfig keys that a configuration states at its top level, or that
+# the harness takes from the grid, the mix and the configuration's chunk.
+TOP_LEVEL_KEYS = ("base_cr", "residual_mode", "error")
+HARNESS_KEYS = ("dims", "chunk_dims")
+# Decoder files lie in the benchmark's own folder.
+DECODER_DIR = HERE
+PROGRAM = "ebcc_tpu_torch"
+
+
+@dataclasses.dataclass
+class Deployment:
+    """What a configuration file states, as the run uses it."""
+    grid: tuple               # (h, w)
+    codec: object             # ebcc_tpu_torch.CodecConfig
+    field: tuple              # (means, stds) per frame, or None
+    bound: object             # check.Bound
+    decoder: object           # module: decode_container, FormatError
+
+
+def chunk_dims(config: dict, frames: int, h: int, w: int, grid) -> tuple:
+    """The configuration's ``chunk``, each axis within the slab's; at a
+    test's ``grid`` in place of the configuration's own, a chunk that
+    spans the frame spans the test's frame, and a tile is cut to fit."""
+    chunk = config["chunk"]
+    if not (isinstance(chunk, list) and len(chunk) == 3
+            and all(isinstance(c, int) and not isinstance(c, bool)
+                    and c > 0 for c in chunk)):
+        raise RunError("chunk: three whole numbers above 0")
+    if grid is not None:
+        if chunk[1:] == list(config["grid"]):
+            return (chunk[0], h, w)
+        return (chunk[0], min(chunk[1], h), min(chunk[2], w))
+    if chunk[0] > frames or chunk[1] > h or chunk[2] > w:
+        raise RunError(f"chunk {chunk} does not fit a slab of "
+                       f"{(frames, h, w)}")
+    return tuple(chunk)
+
+
+def codec_config(et, config: dict, frames: int, h: int, w: int,
+                 grid=None):
+    """The program's ``CodecConfig``: ``residual_mode`` by the name of its
+    ``RESIDUAL_*`` constant, ``base_cr`` and ``error`` from the top level,
+    every other keyword from ``codec``; dims from the mix's frames and the
+    grid, chunks from ``chunk`` (:func:`chunk_dims`)."""
+    name = config["residual_mode"]
+    mode = getattr(et, f"RESIDUAL_{name}", None) if isinstance(
+        name, str) else None
+    if not isinstance(mode, int):
+        raise RunError(f"unknown residual_mode {name!r}")
+    extra = config.get("codec", {})
+    if not isinstance(extra, dict):
+        raise RunError("codec: an object of CodecConfig keywords")
+    known = {f.name for f in dataclasses.fields(et.CodecConfig)}
+    bad = sorted(k for k in extra
+                 if k not in known or k in TOP_LEVEL_KEYS + HARNESS_KEYS)
+    if bad:
+        raise RunError(f"codec keys {bad}: not CodecConfig keywords that "
+                       f"a configuration sets there")
+    chunk = chunk_dims(config, frames, h, w, grid)
+    error = {"error": config["error"]} if "error" in config else {}
+    try:
+        return et.CodecConfig(dims=(frames, h, w), base_cr=config["base_cr"],
+                              residual_mode=mode, chunk_dims=chunk,
+                              **error, **extra)
+    except (TypeError, ValueError) as e:
+        raise RunError(f"codec: {e}") from e
+
+
+def field_profile(config: dict, frames: int):
+    """``field`` -> (means, stds), one entry per frame, or None."""
+    field = config.get("field")
+    if field is None:
+        return None
+    if not isinstance(field, dict) or sorted(field) != ["mean", "std"]:
+        raise RunError("field: an object with the lists mean and std")
+    out = []
+    for key in ("mean", "std"):
+        values = field[key]
+        if (not isinstance(values, list) or len(values) not in (1, frames)
+                or not all(isinstance(v, (int, float))
+                           and not isinstance(v, bool) for v in values)):
+            raise RunError(f"field.{key}: a list of {frames} numbers, one "
+                           f"per frame of the mix, or of one")
+        out.append([float(v) for v in values] * (frames // len(values)))
+    return tuple(out)
+
+
+def bound_of(et, cfg):
+    """The guarantee that decides ``correct``, as docs/FORMAT.md states it
+    for the codec settings: MAX_ERROR ``error`` on every sample, or
+    RELATIVE_ERROR ``error`` times the chunk's range; conforming decoders
+    differ by 4e-6 of the range per intra chunk, by 2 * T * 4e-6 per
+    temporal chunk of T frames.  A mode whose guarantee the benchmark
+    cannot check yet is a ``RunError``."""
+    from . import check
+    kind = {et.RESIDUAL_MAX_ERROR: "max_abs",
+            et.RESIDUAL_RELATIVE_ERROR: "chunk_relative"}.get(
+                cfg.residual_mode)
+    if kind is None:
+        raise RunError(f"residual_mode {cfg.residual_mode_name}: the "
+                       f"benchmark has no check of its guarantee yet")
+    if not cfg.error > 0:
+        raise RunError(f"error {cfg.error}: a bound above 0")
+    frames = cfg.chunk_dims[0]
+    eps = check.DECODER_EPS_REL * (
+        2 * frames if cfg.temporal and frames > 1 else 1)
+    return check.Bound(kind, float(cfg.error), eps)
+
+
+def program_imports(path: str, seen=None) -> list:
+    """Imports of the program or of the JAX package in a decoder file and
+    in the modules of this package that it imports, read from the
+    source."""
+    seen = set() if seen is None else seen
+    if path in seen:
+        return []
+    seen.add(path)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            pkg = __package__.split(".")
+            up = pkg[:len(pkg) + 1 - node.level] if node.level else []
+            mod = ".".join(up + ([node.module] if node.module else []))
+            names += [mod] + [f"{mod}.{a.name}".lstrip(".")
+                              for a in node.names]
+    found = []
+    for name in names:
+        parts = name.split(".")
+        if parts[0] in FORBIDDEN + (PROGRAM,):
+            found.append(name)
+        elif parts[0] == __package__:
+            sub = os.path.join(ROOT, *parts) + ".py"
+            if os.path.isfile(sub):
+                found += program_imports(sub, seen)
+    return found
+
+
+def load_decoder(config: dict):
+    """The decoder file the configuration names under ``reference``, a
+    path inside the benchmark's folder, loaded by path as a module of this
+    package, so that its relative imports name this package's modules.
+    A file that imports the program or the JAX package is refused."""
+    rel = config.get("reference", os.path.join("portbench", "reference.py"))
+    folder = os.path.realpath(DECODER_DIR)
+    path = (os.path.realpath(os.path.join(os.path.dirname(folder), rel))
+            if isinstance(rel, str) and not os.path.isabs(rel) else None)
+    if path is None or os.path.commonpath([path, folder]) != folder:
+        raise RunError(f"reference: {rel!r} is not a path inside "
+                       f"{os.path.basename(folder)}/")
+    if not os.path.isfile(path):
+        raise RunError(f"reference: no file {rel}")
+    bad = program_imports(path)
+    if bad:
+        raise RunError(f"reference: {rel} imports {sorted(set(bad))}; the "
+                       f"decoder that decides correct takes nothing of the "
+                       f"program")
+    stem = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(
+        f"{__package__}.decoder_{stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod      # for dataclasses and pickling in it
+    spec.loader.exec_module(mod)
+    if not (callable(getattr(mod, "decode_container", None))
+            and isinstance(getattr(mod, "FormatError", None), type)
+            and issubclass(mod.FormatError, Exception)):
+        raise RunError(f"reference: {rel} gives no decode_container and "
+                       f"FormatError")
+    return mod
+
+
+def deployment(et, config: dict, frames: int, grid=None) -> Deployment:
+    """The one reading of a configuration file, for runs and the control,
+    at its own grid or at ``grid`` (h, w); a missing or unknown key or
+    mode, a chunk that does not fit, or a list of the wrong length, is a
+    ``RunError``."""
+    missing = sorted(set(REQUIRED_KEYS) - set(config))
+    if missing:
+        raise RunError(f"the configuration lacks {missing}")
+    unknown = sorted(set(config) - set(REQUIRED_KEYS + READ_KEYS
+                                       + DOC_KEYS))
+    if unknown:
+        raise RunError(f"unknown configuration keys {unknown}")
+    h, w = grid or config["grid"]
+    cfg = codec_config(et, config, frames, h, w, grid)
+    return Deployment(grid=(h, w), codec=cfg,
+                      field=field_profile(config, frames),
+                      bound=bound_of(et, cfg),
+                      decoder=load_decoder(config))
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
@@ -172,6 +359,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
 
     import numpy as np
     import torch
+
+    import ebcc_tpu_torch as et
+    frames = mix["frames"]
+    dep = deployment(et, config, frames, grid)
+    h, w = dep.grid
     if device == "cuda":
         if not torch.cuda.is_available():
             raise RunError("no CUDA device")
@@ -180,20 +372,18 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                            f"cell asks for {cell['chips']}")
     dev = torch.device(device)
 
-    import ebcc_tpu_torch as et
     from ebcc_tpu_torch.core import codec, routing, transfer
     from ebcc_tpu_torch.ops import dwt_hopper, exchange_hopper
     from ebcc_tpu_torch.utils import timing
-    from . import check, reference, tracing
+    from . import check, tracing
 
     marks = [("imports", time.perf_counter())]
-    h, w = grid or config["grid"]
-    frames = mix["frames"]
     n_pool = pool or mix["pool"]
-    cfg = codec_config(et, config, frames, h, w)
+    cfg, bound, decoder = dep.codec, dep.bound, dep.decoder
     cdims = cfg.chunk_dims
 
-    slabs_dev = traffic.make_slabs(seed, n_pool, frames, h, w, dev)
+    slabs_dev = traffic.make_slabs(seed, n_pool, frames, h, w, dev,
+                                   dep.field)
     slabs = [np.ascontiguousarray(s) for s in slabs_dev.cpu().numpy()]
     del slabs_dev
     marks.append(("slab pool", time.perf_counter()))
@@ -296,6 +486,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     # ---- the check: the reference over a sample of the window ----
     if cuda:
         torch.cuda.empty_cache()
+    limits = bound.limits
     numbers = {"err_over_bound": 0.0}
     if op == "read":
         numbers["gap_over_range"] = 0.0
@@ -303,9 +494,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         for idx, answer in sorted(sample, key=lambda t: t[0]):
             slab = torch.from_numpy(slabs[idx % n_pool]).to(dev)
             if op == "write":
-                decoded, _ = reference.decode_container(answer, dev)
+                decoded, _ = decoder.decode_container(answer, dev)
             else:
-                ref, ranges = reference.decode_container(
+                ref, ranges = decoder.decode_container(
                     blobs[idx % n_pool], dev)
                 decoded = torch.from_numpy(np.asarray(answer)).to(dev)
                 numbers["gap_over_range"] = max(
@@ -313,14 +504,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                     check.gap_over_range(decoded, ref, ranges, cdims))
             numbers["err_over_bound"] = max(
                 numbers["err_over_bound"],
-                check.err_over_bound(decoded, slab, cdims,
-                                     config["residual_mode"],
-                                     config["error"]))
+                check.err_over_bound(decoded, slab, cdims, bound))
         failure = None
-    except (reference.FormatError, ValueError) as e:
+    except (decoder.FormatError, ValueError) as e:
         failure = f"{type(e).__name__}: {e}"
     correct = failure is None and all(
-        v <= check.LIMITS[n] for n, v in numbers.items())
+        v <= limits[n] for n, v in numbers.items())
 
     # ---- metrics ----
     section = "per_layer" if trace else "end_to_end"
@@ -343,7 +532,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         dev_info["window_s"] = run.trace.window_s
         result["breakdown"] = {"device_ops": run.trace.top_ops(),
                                "idle_gaps": run.trace.top_gaps()}
-    result["checks"] = {n: {"value": v, "limit": check.LIMITS[n]}
+    result["checks"] = {n: {"value": v, "limit": limits[n]}
                         for n, v in numbers.items()}
     if failure:
         result["checks"]["format"] = {"value": failure, "limit": "none"}

@@ -14,8 +14,8 @@ CELLS = ["max0.5_cr30.write8", "rel0.01_cr200.write8", "max0.5_cr30.read8"]
 def test_control_fails_sound_passes_cpu(workload):
     r = control.readings(workload, 2**31 + 5, 2, device="cpu",
                          grid=(64, 96))
-    assert control.fails(r["control"])
-    assert not control.fails(r["sound"])
+    assert control.fails(r["control"], r["limits"])
+    assert not control.fails(r["sound"], r["limits"])
 
 
 @pytest.mark.cuda
@@ -25,6 +25,6 @@ def test_control_fails_on_card_at_cell_size(workload):
         pytest.skip("needs a CUDA card")
     for seed in (2**31 + 11, 2**31 + 12, 2**31 + 13):
         r = control.readings(workload, seed, 2)
-        assert control.fails(r["control"]), r
-        assert not control.fails(r["sound"]), r
-        assert all(v <= check.LIMITS[n] for n, v in r["sound"].items())
+        assert control.fails(r["control"], r["limits"]), r
+        assert not control.fails(r["sound"], r["limits"]), r
+        assert r["limits"] == check.LIMITS

@@ -4,6 +4,7 @@ not correct, and that nothing here imports JAX, the JAX package or the old
 bench."""
 
 import ast
+import json
 import math
 import os
 import time
@@ -15,6 +16,7 @@ import ebcc_tpu_torch as et
 from portbench import harness
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
 GRID = (64, 96)
 CELLS = ["max0.5_cr30.write8", "rel0.01_cr200.write8", "max0.5_cr30.read8"]
 
@@ -148,7 +150,13 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_yardstick_imports_nothing_of_the_program():
-    for f in ("reference.py", "zstd_ref.py", "check.py", "roofline.py",
-              "traffic.py", "tracing.py"):
+    """The fixed files, and every decoder file a configuration names."""
+    decoders = set()
+    for f in os.listdir(os.path.join(HERE, "configs")):
+        with open(os.path.join(HERE, "configs", f)) as fh:
+            rel = json.load(fh).get("reference", "portbench/reference.py")
+        decoders.add(os.path.relpath(os.path.join(ROOT, rel), HERE))
+    for f in sorted({"reference.py", "zstd_ref.py", "check.py",
+                     "roofline.py", "traffic.py", "tracing.py"} | decoders):
         for name in _imports(os.path.join(HERE, f)):
             assert name.split(".")[0] != "ebcc_tpu_torch", (f, name)

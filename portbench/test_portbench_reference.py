@@ -8,7 +8,7 @@ import pytest
 import torch
 
 import ebcc_tpu_torch as et
-from portbench import check, reference, traffic
+from portbench import check, harness, reference, traffic
 
 H, W = 64, 96
 
@@ -30,13 +30,17 @@ CASES = [(et.RESIDUAL_MAX_ERROR, "MAX_ERROR", 0.5, 30),
 @pytest.mark.parametrize("mode,name,error,base_cr", CASES)
 def test_reference_decodes_program_containers(mode, name, error, base_cr):
     x = _slab(11)
-    blob = et.encode_chunked(x, _config(mode, error, base_cr), device="cpu")
+    cfg = _config(mode, error, base_cr)
+    blob = et.encode_chunked(x, cfg, device="cpu")
     port = torch.from_numpy(et.decode_chunked(blob, device="cpu"))
     ref, ranges = reference.decode_container(blob)
     assert ref.shape == port.shape == x.shape
     assert check.gap_over_range(port, ref, ranges, (1, H, W)) <= 1e-6
-    assert check.err_over_bound(ref, torch.from_numpy(x), (1, H, W), name,
-                                error) <= 1.0
+    bound = harness.bound_of(et, cfg)
+    assert bound.kind == {"MAX_ERROR": "max_abs",
+                          "RELATIVE_ERROR": "chunk_relative"}[name]
+    assert check.err_over_bound(ref, torch.from_numpy(x), (1, H, W),
+                                bound) <= 1.0
 
 
 def test_reference_handles_multiframe_and_edge_chunks():

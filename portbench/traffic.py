@@ -10,6 +10,13 @@ bilinearly, and 0.02 white noise.  Every seed gives the same number of
 slabs of the same shape, and the first ``k`` slabs of a pool are the pool
 of ``k`` from that seed.
 
+A configuration may state a per-frame profile (its ``field``: a mean and a
+standard deviation per frame of the slab).  Frame ``i`` is then that
+texture standardised by its own mean and standard deviation, in float64,
+and set to ``mean_i + std_i * z_i``, as ``scripts/ab_reference.py`` lays
+its texture on a level's mean and spread.  The draws are the same, so the
+same seed gives the same texture under every profile.
+
 The encoder's work and the compression ratio depend on the content
 (whether a chunk needs the residual layer), so a mix's pool is large
 enough that its mean over the pool moves little from seed to seed.
@@ -65,9 +72,22 @@ def base_field(h: int, w: int, device):
         xx / w * 2 * math.pi)
 
 
+def profiled(slab, means, stds) -> torch.Tensor:
+    """(frames, h, w) -> each frame standardised in float64 and set to its
+    stated mean and standard deviation."""
+    x = slab.to(torch.float64)
+    mu = x.mean(dim=(1, 2), keepdim=True)
+    sd = x.std(dim=(1, 2), keepdim=True, correction=0)
+    mean = torch.tensor(means, dtype=torch.float64, device=slab.device)
+    std = torch.tensor(stds, dtype=torch.float64, device=slab.device)
+    return mean[:, None, None] + std[:, None, None] * (x - mu) / sd
+
+
 def make_slabs(seed: int, n_slabs: int, frames: int, h: int, w: int,
-               device) -> torch.Tensor:
-    """(n_slabs, frames, h, w) float32 on ``device``, from ``seed``."""
+               device, field=None) -> torch.Tensor:
+    """(n_slabs, frames, h, w) float32 on ``device``, from ``seed``;
+    ``field`` is ``None`` or a configuration's profile, ``(means, stds)``
+    with one entry per frame."""
     g = _generator(seed, device)
     base = base_field(h, w, device)
     drift = DRIFT_PER_FRAME * torch.arange(frames, dtype=torch.float32,
@@ -77,5 +97,6 @@ def make_slabs(seed: int, n_slabs: int, frames: int, h: int, w: int,
     for s in range(n_slabs):
         coarse = torch.randn((frames, *COARSE), generator=g, device=device)
         noise = torch.randn((frames, h, w), generator=g, device=device)
-        out[s] = base + drift + _bilinear(coarse, h, w) + NOISE * noise
+        slab = base + drift + _bilinear(coarse, h, w) + NOISE * noise
+        out[s] = slab if field is None else profiled(slab, *field)
     return out
