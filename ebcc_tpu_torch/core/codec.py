@@ -1072,6 +1072,10 @@ def _rice_enabled() -> bool:
 # small outputs and the compacted Rice pair; the small outputs then give
 # the true count and the Rice header the true word count, so a hint miss
 # costs more copies, never correctness.  The hint only sizes transfers.
+# With spans on, each batch adds its significant-pair count to one of two
+# counters (``timing.count``): "exch: index pairs" where the pairs took the
+# int32 index fallback, "exch: compact pairs" otherwise (the compact Rice
+# pair, hinted or not; a batch with no pair adds 0).
 _EXCH_HINTS: dict = {}
 _EXCH_LOCK = threading.Lock()
 
@@ -1191,12 +1195,14 @@ def _fetch_encode_outputs(out: dict, b: int, d0: int, hp: int,
             res = _fused_fetch_encode_outputs(out, small_dev, key, hint, b,
                                               d0, hp, wp)
             if res is not None:
+                timing.count("exch: compact pairs", res["sparse"].idx.size)
                 return res
 
     with stage("enc: small fetch (+compute)"):
         small = _fetch_small(small_dev)
     nnz = int(small.pop("exchange_nnz"))
     if nnz == 0:
+        timing.count("exch: compact pairs", 0)
         small["sparse"] = _empty_sparse(b, d0, hp, wp)
         return small
     if (_rice_enabled()
@@ -1204,6 +1210,7 @@ def _fetch_encode_outputs(out: dict, b: int, d0: int, hp: int,
         with stage("enc: compact+rice fetch"):
             idx, vals = _fetch_rice_pair(out, transfer.bucket_count(nnz),
                                          key, nnz, hp, wp)
+        timing.count("exch: compact pairs", nnz)
         small["sparse"] = _SparseBatch(idx, vals, b, d0, hp, wp)
         return small
     vals_comb = out["vals_comb"]
@@ -1211,6 +1218,7 @@ def _fetch_encode_outputs(out: dict, b: int, d0: int, hp: int,
         idx = torch.nonzero(vals_comb).reshape(-1)
         vals = transfer.download(vals_comb[idx])
         idx = transfer.download(idx.to(torch.int32))
+    timing.count("exch: index pairs", nnz)
     small["sparse"] = _SparseBatch(idx, vals, b, d0, hp, wp)
     return small
 

@@ -16,6 +16,13 @@ the same thread; a child on another thread runs in parallel and is not
 subtracted.  Thread seconds overlap when stages run on concurrent threads,
 so their totals attribute work, not end-to-end latency.
 
+The same table holds counters (:func:`count`): an amount the program adds
+up where its work happens, such as the significant pairs of each encode
+batch by the exchange path that carried them.  A counter entry has two
+items, [additions, sum of the amounts added], and no seconds; it is kept
+while spans are on and costs one flag test otherwise, as a span does.
+:func:`snapshot` reports the spans alone.
+
 :func:`recording` keeps every span that closes while it is open, from every
 thread, with its thread, parent and ``perf_counter_ns`` bounds;
 ``utils.profiling.trace`` uses it to put the spans into its Chrome trace.
@@ -64,10 +71,11 @@ def reset_stats() -> None:
 
 
 def snapshot() -> dict:
-    """name -> {"count": n, "total_s": thread s, "self_s": self s}, sorted
-    by descending total."""
+    """Span name -> {"count": n, "total_s": thread s, "self_s": self s},
+    sorted by descending total; counters are left out."""
     with _LOCK:
-        items = sorted(STATS.items(), key=lambda kv: -kv[1][1])
+        items = sorted(((k, v) for k, v in STATS.items() if len(v) == 3),
+                       key=lambda kv: -kv[1][1])
         return {k: {"count": v[0], "total_s": round(v[1], 4),
                     "self_s": round(v[2], 4)}
                 for k, v in items}
@@ -102,6 +110,17 @@ def recording():
     finally:
         with _LOCK:
             ENABLED, _RECORDS = was
+
+
+def count(name: str, amount: int) -> None:
+    """Add ``amount`` to the counter ``name`` (a constant) while spans are
+    on: ``STATS[name]`` = [additions, sum]."""
+    if not ENABLED:
+        return
+    with _LOCK:
+        e = STATS.setdefault(name, [0, 0])
+        e[0] += 1
+        e[1] += int(amount)
 
 
 @contextlib.contextmanager

@@ -136,15 +136,20 @@ def _nap_in_span():
         time.sleep(0.004)
 
 
-def _stage_calls(path):
+def _stage_calls(path, called="stage"):
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Call):
             f = node.func
             name = f.id if isinstance(f, ast.Name) else getattr(f, "attr",
                                                                 None)
-            if name == "stage":
+            if name == called:
                 yield node
+
+
+def _counter_calls(path):
+    return (n for n in _stage_calls(path, "count")
+            if ast.unparse(n.func) == "timing.count")
 
 
 def test_span_names_are_constants():
@@ -169,9 +174,36 @@ def test_names_in_stats_are_the_literals(spans_on):
     et.decode_chunked(et.encode_chunked(x, config(x), device="cpu"),
                       device="cpu")
     literals = {n.args[0].value for p in PACKAGE.rglob("*.py")
-                for n in _stage_calls(p) if p.name != "timing.py"}
+                if p.name != "timing.py"
+                for calls in (_stage_calls(p), _counter_calls(p))
+                for n in calls}
     assert timing.STATS and set(timing.STATS) <= literals
     assert not hasattr(timing, "_DIGITS")
+
+
+def test_counter_names_are_constants():
+    names = set()
+    for path in PACKAGE.rglob("*.py"):
+        for node in _counter_calls(path):
+            where = f"{path.name}:{node.lineno}"
+            assert len(node.args) == 2 and not node.keywords, where
+            assert isinstance(node.args[0], ast.Constant), where
+            assert isinstance(node.args[0].value, str), where
+            names.add(node.args[0].value)
+    assert names == {"exch: compact pairs", "exch: index pairs"}
+
+
+def test_counter_entry_is_additions_and_sum(spans_on):
+    with timing.stage("span"):
+        timing.count("counted", 5)
+        timing.count("counted", 7)
+    assert timing.STATS["counted"] == [2, 12]
+    assert set(timing.snapshot()) == {"span"}    # counters left out
+    timing.ENABLED = False
+    timing.count("counted", 100)
+    timing.count("not counted", 1)
+    assert timing.STATS["counted"] == [2, 12]
+    assert "not counted" not in timing.STATS
 
 
 def test_spans_off_record_nothing_and_wait_for_nothing(monkeypatch):
