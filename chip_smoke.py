@@ -26,13 +26,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (printed, "not measured" when three sessions give no whole calls).  Then the same checks at the edge shapes
    (2, 1, 96, 160), (1, 2, 224, 416), (1, 1, 32, 64) (levels shrink to 1-2
    samples), (4, 1, 1824, 3616) (a 1801x3600 grid, padded; timed too) and
-   (2, 1, 1024, 1024) (the compat tiles of phase 11; timed too).
+   (2, 1, 1024, 1024) (the compat tiles of phase 11; timed too).  The
+   coded-size estimate ``code_size_stats`` at the encode's shape (4, 736,
+   1440): 22 planes on K1's coefficients, 13 on a residual-like input's;
+   its table equal to the plain twin's (``torch.equal``), timed, two
+   kernels a call.
 3. Main path: 32 frames of 721x1440 float32 on the card through
    ``roundtrip_frames_device`` at MAX_ERROR 0.5, base_cr 30, zstd level 3,
    sub-batches of 4; the bound is checked on the card, the streams decode
    again bit-equal through ``decode_frames_device``, the first 8 frames
    encode byte-identically one at a time, every kernel of the
-   path must have launched, and a small input encoded on the CPU (the plain
+   path must have launched, the size estimate through its kernel once a
+   batch at 22 planes and 7 times more at 13 planes in each batch that
+   takes the residual sweep, and a small input encoded on the CPU (the plain
    path the CPU tests hold against the JAX package) must agree with the
    card's encode.
 4. K3 ``curve_stats`` against its plain version at (4, 1, 736, 1440): the
@@ -49,7 +55,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 5. The fused-curve path: the 32 frames through ``roundtrip_frames_device``
    at RELATIVE_ERROR 1e-2 with ``EBCC_FUSED_CURVE=1``; every chunk within
    1e-2 of its range, ``curve_stats`` launched; the same roundtrip with the
-   flag off must make the same cuts and flags and byte-identical streams.
+   flag off must make the same cuts and flags and byte-identical streams;
+   the size estimate's calls as in phase 3, and at least one batch through
+   the residual sweep.
 6. POINTWISE_RELATIVE 1e-3 with ``allow_nan`` on 8 frames given as a numpy
    array with NaN over a fixed ~30% mask: ``encode_frames_device`` then
    ``decode_frames_device`` on the card restore every NaN and keep
@@ -402,15 +410,58 @@ def device_profile(torch, fn, calls=5, sessions=3):
 
 def reset_all_counts(dh):
     """Every wrapper's launch count set to 0: the kernels of
-    ``dwt_hopper`` and X1 of ``exchange_hopper``."""
+    ``dwt_hopper``, X1 of ``exchange_hopper`` and the size estimate of
+    ``bitplane_hopper``."""
+    from ebcc_tpu_torch.ops import bitplane_hopper as bh
     from ebcc_tpu_torch.ops import exchange_hopper as xh
     dh.reset_launch_counts()
     xh.reset_launch_counts()
+    bh.reset_launch_counts()
 
 
 def all_counts(dh):
+    from ebcc_tpu_torch.ops import bitplane_hopper as bh
     from ebcc_tpu_torch.ops import exchange_hopper as xh
-    return {**dh.launch_counts(), **xh.launch_counts()}
+    return {**dh.launch_counts(), **xh.launch_counts(),
+            **bh.launch_counts()}
+
+
+@contextlib.contextmanager
+def estimate_calls():
+    """Counts the calls of the coded-size estimate while the block runs, by
+    plane count: {num_planes: calls}."""
+    import collections
+    import threading
+    from ebcc_tpu_torch.ops import bitplane
+    calls, lock = collections.Counter(), threading.Lock()
+    inner = bitplane.estimated_code_bytes
+
+    def counted(q, num_planes, *args, **kw):
+        with lock:
+            calls[num_planes] += 1
+        return inner(q, num_planes, *args, **kw)
+
+    with patched(bitplane, "estimated_code_bytes", counted):
+        yield calls
+
+
+def check_estimate_calls(name, calls, launched, batches):
+    """A MAX_ERROR or RELATIVE_ERROR encode of ``batches`` sub-batches
+    estimates each batch's base (22 planes) once and, in a batch that takes
+    the residual sweep, its 4 residual scales and 3 refine ratios (13
+    planes) once each: 8 calls, 1 in a base-only batch, every one through
+    the kernel (``launched``, the wrapper's count).  Returns the batches
+    that took the sweep."""
+    residual, rest = divmod(calls[13], 7)
+    if (set(calls) - {13, 22} or calls[22] != batches or rest
+            or launched != sum(calls.values())):
+        raise AssertionError(f"{name}: size estimate calls {dict(calls)}, "
+                             f"{launched} through the kernel, over "
+                             f"{batches} batches")
+    print(f"  {name}: code_size_stats {launched} calls over {batches} "
+          f"batches, {residual} of them through the residual sweep (8 "
+          f"calls each, 1 a base-only batch)")
+    return residual
 
 
 def kernels_launched(torch, dh, fn):
@@ -449,6 +500,7 @@ def phase_kernels(torch, dh, frames, tall):
         if not 0 < rows[name]["launched"] <= most:
             raise AssertionError(f"{name}: {rows[name]['launched']} kernels "
                                  f"launched, 1 to {most} expected")
+    rows.update(estimate_rows(torch, dh, u))
 
     for shape in EDGE_SHAPES:
         src = tall if shape[2] > 736 or shape[3] > 1440 else frames
@@ -463,6 +515,42 @@ def phase_kernels(torch, dh, frames, tall):
                 if k in ("dwt2d_quantize", "idwt2d_dequant")}
             time_rows(tall_rows)
             profile_rows(torch, dh, tall_rows)
+    return rows
+
+
+def estimate_rows(torch, dh, u):
+    """Phase 2's rows of the coded-size estimate at the encode's shape
+    (B, D0 * Hp, Wp): the base call (22 planes) on K1's coefficients of u
+    at 5 levels, and a residual call (13 planes) on K1's of a residual-like
+    input at 3 levels; the kernel's table equals the plain twin's on the
+    same tensor (``torch.equal``), two kernels a call."""
+    from ebcc_tpu_torch.ops import bitplane
+    from ebcc_tpu_torch.ops import bitplane_hopper as bh
+    b, d0, hp, wp = u.shape
+    qs = {"code_size_stats": (dh.dwt2d_quantize(u, 5), 22),
+          "code_size_stats L13": (
+              dh.dwt2d_quantize((u % 255.0).contiguous() * 4.0, 3), 13)}
+    rows = {}
+    for name, (q, planes) in qs.items():
+        q = q.reshape(b, d0 * hp, wp)
+        fn = lambda q=q, p=planes: bitplane.estimated_code_bytes(q, p)
+        plain = lambda q=q, p=planes: bitplane.estimated_code_bytes_plain(
+            q, p)
+        got, want = fn(), plain()
+        equal = torch.equal(got, want)
+        print(f"{name} {tuple(q.shape)}, {planes} planes, magnitudes up to "
+              f"{int(q.abs().max())}: bit-equal={equal}")
+        if not equal:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        rows[name] = dict(fn=fn, plain=plain, err=0.0, nbytes=4 * q.numel(),
+                          ops=0, replaces="ebcc_tpu/ops/bitplane.py "
+                          "estimated_code_bytes (XLA, no Pallas kernel)")
+    time_rows(rows)
+    profile_rows(torch, bh, rows)
+    for name, row in rows.items():
+        if row["launched"] != 2:
+            raise AssertionError(f"{name}: {row['launched']} kernels "
+                                 "launched, 2 expected")
     return rows
 
 
@@ -650,7 +738,9 @@ def phase_main_path(torch, et, dh, frames, card):
 
     reset_all_counts(dh)
     t0 = time.perf_counter()
-    streams, dec = et.roundtrip_frames_device(x, config, opts, max_batch=4)
+    with estimate_calls() as est_calls:
+        streams, dec = et.roundtrip_frames_device(x, config, opts,
+                                                  max_batch=4)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = all_counts(dh)
@@ -680,11 +770,14 @@ def phase_main_path(torch, et, dh, frames, card):
           f"max error {maxerr:.6f}, stream bytes {nbytes}")
     print(f"launches on the main path: {launches}")
     missing = [k for k in ("dwt2d_quantize", "dwt2d_transform",
-                           "idwt2d_dequant", "rice_unpack_qflat")
+                           "idwt2d_dequant", "rice_unpack_qflat",
+                           "code_size_stats")
                if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    launches["residual_batches"] = check_estimate_calls(
+        "main path", est_calls, launches["code_size_stats"], n // 4)
 
     # Small input: the CPU plain path (held against the JAX package by the
     # CPU tests) and the card must agree.
@@ -727,13 +820,17 @@ def phase_relative(torch, et, dh, frames, card):
         try:
             et.roundtrip_frames_device(x[:4], config, opts, max_batch=4)
             torch.cuda.synchronize()
-            dh.reset_launch_counts()
+            reset_all_counts(dh)
             t0 = time.perf_counter()
-            streams, dec = et.roundtrip_frames_device(x, config, opts,
-                                                      max_batch=4)
+            with estimate_calls() as est_calls:
+                streams, dec = et.roundtrip_frames_device(x, config, opts,
+                                                          max_batch=4)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = dh.launch_counts()
+            launches = all_counts(dh)
+            launches["residual_batches"] = check_estimate_calls(
+                f"relative, fused curve {fused}", est_calls,
+                launches["code_size_stats"], n // 4)
         finally:
             os.environ.pop("EBCC_FUSED_CURVE")
         err_c = (x - dec).abs().amax(dim=(1, 2, 3))
@@ -772,6 +869,9 @@ def phase_relative(torch, et, dh, frames, card):
           f"{launches_f['dwt2d_transform']} of {n // 4} batches")
     if differ or same != n:
         raise AssertionError("fused and unfused encodes disagree")
+    if not launches_u["residual_batches"]:
+        raise AssertionError("no batch of the relative roundtrip took the "
+                             "residual sweep")
     return launches_f
 
 
@@ -874,7 +974,9 @@ def rate_roundtrip(torch, et, dh, x, base_cr, card):
     torch.cuda.synchronize()
     reset_all_counts(dh)
     t0 = time.perf_counter()
-    streams, dec = et.roundtrip_frames_device(x, config, opts, max_batch=4)
+    with estimate_calls() as est_calls:
+        streams, dec = et.roundtrip_frames_device(x, config, opts,
+                                                  max_batch=4)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = all_counts(dh)
@@ -2615,6 +2717,15 @@ def main():
             "max_abs_err": row["err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
+    row = rows["code_size_stats"]
+    kernels.append({
+        "name": "code_size_stats", "route": "cuda",
+        "source": "ebcc_tpu_torch/csrc/bitplane.cu",
+        "replaces": row["replaces"], "launches": launches["code_size_stats"],
+        "max_abs_err": max(row["err"], rows["code_size_stats L13"]["err"]),
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None})
     kernels.append({
         "name": "exchange_rice_unpack", "route": "cuda",
         "source": "ebcc_tpu_torch/csrc/exchange.cu",

@@ -2,7 +2,9 @@
 PyTorch.
 
 Counterpart of ``ebcc_tpu/ops/bitplane.py:32-165`` (the dense plane packers
-are host work in the port: ``core.codec.build_layer_payload_sparse``).
+are host work in the port: ``core.codec.build_layer_payload_sparse``).  The
+estimate of a CUDA tensor runs as one kernel pass
+(``ops.bitplane_hopper``), bit-equal to :func:`estimated_code_bytes_plain`.
 """
 
 from __future__ import annotations
@@ -42,6 +44,18 @@ def plane_bit_density(q, num_planes: int):
 
 
 def estimated_code_bytes(q, num_planes: int, zstd_efficiency: float = 1.35):
+    """:func:`estimated_code_bytes_plain` of q: a CPU tensor takes it, any
+    other the kernel of ``ops.bitplane_hopper``, which is bit-equal to it on
+    the same card (and raises on what it does not take)."""
+    if q.device.type == "cpu":
+        return estimated_code_bytes_plain(q, num_planes, zstd_efficiency)
+    from . import bitplane_hopper
+    return bitplane_hopper.estimated_code_bytes(q, num_planes,
+                                                zstd_efficiency)
+
+
+def estimated_code_bytes_plain(q, num_planes: int,
+                               zstd_efficiency: float = 1.35):
     """Estimated entropy-coded size (bytes) of the stream cut at each plane:
     ``(num_planes + 1, ...)`` float32, index k = size when cutting at bit k.
 

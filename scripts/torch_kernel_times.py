@@ -21,6 +21,14 @@ version, the device span of a call (its clearing included) and X1's own
 kernel time, kernels per call (the library's count and the profiler's),
 event ms, the byte bound and the plain ms (``chip_smoke.x1_row``).
 
+The coded-size estimate (``code_size_stats``, ``ops/bitplane_hopper.py``)
+at (8, 736, 1440) and (32, 736, 1440), 13 and 22 planes, on K1's
+coefficients of the frames: bit-equality with its plain twin, kernels per
+call (the library's count and the profiler's), the device span of a call
+warm (q in L2 from the call before, as K1 leaves it in the encode) and cold
+(the L2 cleared first: :func:`cold_span_ms`), event ms, the byte bound (q
+read once) and the plain twin's ms and kernels.
+
 Run from the root of a checkout of this repository::
 
     python3 scripts/torch_kernel_times.py [--root DIR] [--out FILE]
@@ -35,6 +43,7 @@ import importlib.util
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 
@@ -75,6 +84,68 @@ def kernel_name(signature):
     m = re.search(r"(\w+(?:<[^>(]*>)?)\(", signature.replace(
         "(anonymous namespace)", ""))
     return m.group(1) if m else signature[:40]
+
+
+def cold_span_ms(torch, fn, calls=5):
+    """Median device span of one call of fn (its first kernel's start to
+    its last kernel's end) with the card's L2 cleared before each call: 256
+    MB read between calls, five times the H100's 50 MB L2, so the call
+    reads its input from HBM (and finds no dirty lines to write back).
+    None when the profiler's events of fn's kernels do not split into the
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+    names = {name for name, _ in kernels_of_one_call(torch, fn)}
+    flush = torch.ones(64 << 20, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.sum()
+            torch.cuda.synchronize()
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel_name(e.name) in names)
+    if not ev or len(ev) % calls:
+        return None
+    per = len(ev) // calls
+    return statistics.median((ev[k + per - 1][1] - ev[k][0]) / 1e3
+                             for k in range(0, len(ev), per))
+
+
+def code_size_rows(torch, cs, dh, frames):
+    """Rows of the coded-size estimate, keyed by name (module docstring)."""
+    from ebcc_tpu_torch.ops import bitplane
+    from ebcc_tpu_torch.ops import bitplane_hopper as bh
+    rows = {}
+    for b in (8, 32):
+        u = cs.scaled_input(torch, frames, (b, 1, 736, 1440))
+        q = dh.dwt2d_quantize(u, 5).reshape(b, 736, 1440)
+        for planes in (13, 22):
+            fn = lambda q=q, planes=planes: bitplane.estimated_code_bytes(
+                q, planes)
+            plain = lambda q=q, planes=planes: (
+                bitplane.estimated_code_bytes_plain(q, planes))
+            row = {"equal_plain": bool(torch.equal(fn(), plain()))}
+            torch.cuda.synchronize()
+            before = bh.cuda_kernels_launched()
+            fn()
+            torch.cuda.synchronize()
+            row["library_kernels_per_call"] = (
+                bh.cuda_kernels_launched() - before)
+            per_call, device_ms = cs.device_profile(torch, fn)
+            row.update(event_ms=cs.median_ms(fn), device_ms=device_ms,
+                       cold_device_ms=cold_span_ms(torch, fn),
+                       kernels_per_call=per_call,
+                       bound_ms=4 * q.numel() / 3.35e9,
+                       plain_ms=cs.median_ms(plain, reps=5),
+                       plain_kernels_per_call=cs.device_profile(
+                           torch, plain)[0],
+                       kernels_us=kernels_of_one_call(torch, fn))
+            rows[f"code_size_stats P{planes} {(b, 736, 1440)}"] = row
+    return rows
 
 
 def main():
@@ -135,6 +206,9 @@ def main():
                    "kernels_us": kernels_of_one_call(torch, fn)}
             result["rows"][key] = row
             print(f"{key}: {json.dumps(row)}", flush=True)
+    for key, row in code_size_rows(torch, cs, dh, frames).items():
+        result["rows"][key] = row
+        print(f"{key}: {json.dumps(row)}", flush=True)
     from ebcc_tpu_torch.ops import exchange_hopper as xh
     for seed, (key, (n, s, scale)) in enumerate(X1_DENSITIES.items()):
         idx, vals = cs.synthetic_pairs(n, 2 * s, scale, seed)

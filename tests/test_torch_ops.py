@@ -161,7 +161,8 @@ def test_port_imports_neither_jax_nor_ebcc_tpu():
     for sub in ("native", "parallel", "api"):
         assert PORT_ROOT / sub / "__init__.py" in sources
     for mod in ("core/transfer.py", "core/routing.py",
-                "ops/exchange_hopper.py", "compat/legacy.py", "compat/j2k.py",
+                "ops/exchange_hopper.py", "ops/bitplane_hopper.py",
+                "compat/legacy.py", "compat/j2k.py",
                 "compat/reference_bin.py", "api/xarray_io.py", "bench.py"):
         assert PORT_ROOT / mod in sources
     for name in ("stream_bench", "scaling_bench", "compare_targets",
