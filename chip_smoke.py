@@ -142,12 +142,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     (MAX_ERROR 0.5, ``max_batch`` 4), phase 8's rate frames and phase 9's
     temporal chunks: (a) each encoded in the default form (compact Rice),
     again (every sub-batch hinted: one copy of the small outputs and the
-    pair buffer) and with ``EBCC_NO_RICE=1`` (``torch.nonzero``): streams
+    pair buffer) and without the host library (``torch.nonzero``): streams
     byte-identical to those phases', down bytes per significant
     coefficient and per point, the ``enc:`` stage times, the walls; (b)
-    each set of streams decoded through the blocked-Rice, nibble, byte,
-    bitmap and index uploads: bit-equal to the index form, up bytes per
-    significant coefficient, the ``dec:`` stage times, the walls, the
+    each set of streams decoded through the blocked-Rice and index
+    uploads: bit-equal to the index form, up bytes per significant
+    coefficient, the ``dec:`` stage times, the walls, the
     launches of X1 and K2; (c) X1 ``rice_unpack_qflat`` against its plain
     version, bit-equal, on the blocks of (b)'s first Rice call of each of
     the three runs, at nnz 0, 1, 127, 128, 129, an escape in every block, k
@@ -156,12 +156,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     nnz 1024 with padded lanes, and 2^22 pairs at the compaction's cap;
     at the three runs' calls and the cap its pairs, lanes, device span, X1
     kernels' own time, kernels per call (the library's count, at most 3),
-    event, plain and byte-bound times; (d) the 32
-    frames as a numpy array with the u16 upload: within 0.5 of the float
-    originals, upload bytes per point against the float upload, K1
-    launched; (e) the link probe both ways, ``backend_choice`` for encode
-    and decode, and under ``EBCC_LINK_MBPS=1`` the decision and an explicit
-    native route's encode, decoded on the card within 0.5.
+    event, plain and byte-bound times; (d) the link probe both ways,
+    ``backend_choice`` for encode and decode, and under
+    ``EBCC_LINK_MBPS=1`` the decision and an explicit native route's
+    encode, decoded on the card within 0.5.
 15. The host modules of the JAX package (no kernel: every launch count
     must stay 0): (a) legacy EBCC/EBCK (``ebcc_tpu_torch.compat``; Pillow's
     version and JPEG 2000 support printed): ``LEGACY_FRAMES`` frames of
@@ -176,7 +174,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
     equal to ``native.native_decode``; where ``h5py`` imports, a dataset
     written and read through it in a process whose ``HDF5_PLUGIN_PATH``
     names the port's plugin directory alone; (c) native routing built (the
-    host codec's build seconds and what phases 12e and 14e ran); (d) the
+    host codec's build seconds and what phases 12e and 14d ran); (d) the
     CAB coder with PGO and without it, each its own ``libebcc_host.so``:
     phase 12b's ``cab`` roundtrip on each (PGO, plain, plain, PGO),
     streams byte-identical, ``assemble+zstd`` and ``dec: entropy decode``
@@ -1815,10 +1813,7 @@ def phase_trace(torch, et, frames, tmp, card):
           f"{k2}")
 
 
-# ---- phase 14: the exchange forms, X1, the u16 upload, routing ----
-
-UPLOAD_FORMS = {"rice": ["rice"], "nibble": ["nibble", "bytes"],
-                "bytes": ["bytes"], "bitmap": ["bitmap"], "index": ["index"]}
+# ---- phase 14: the exchange forms, X1, routing ----
 
 
 @contextlib.contextmanager
@@ -1840,7 +1835,7 @@ def stage_line(snap, prefix):
 def phase_encode_forms(torch, et, runs, card):
     """Phase 14a: each run's encode in the default form (compact Rice, the
     hints cleared first), again (every sub-batch hinted: one copy of the
-    small outputs and the pair buffer) and with ``EBCC_NO_RICE=1`` (the
+    small outputs and the pair buffer) and without the host library (the
     ``torch.nonzero`` fetch): streams byte-identical to the earlier
     phase's, down bytes per significant coefficient and per point, the
     ``enc:`` stage times (thread time) and the wall."""
@@ -1856,12 +1851,13 @@ def phase_encode_forms(torch, et, runs, card):
     for label, (x, config, mb, want) in runs.items():
         pts = x.numel()
         codec._EXCH_HINTS.clear()
-        for form, env in (("compact Rice", {}), ("hinted fused", {}),
-                          ("torch.nonzero", {"EBCC_NO_RICE": "1"})):
+        for form, rice in (("compact Rice", True), ("hinted fused", True),
+                           ("torch.nonzero", False)):
             counted.clear()
             transfer.reset_link_stats()
-            with env_set(**env), patched(codec, "_fetch_encode_outputs",
-                                         counting_fetch):
+            with patched(codec, "_rice_enabled",
+                         codec._rice_enabled if rice else lambda: False), \
+                    patched(codec, "_fetch_encode_outputs", counting_fetch):
                 streams, wall, snap = timed_stages(
                     et.encode_frames_device, x, config, max_batch=mb)
             down = transfer.LINK_STATS["down"]
@@ -1878,11 +1874,11 @@ def phase_encode_forms(torch, et, runs, card):
 
 
 def phase_decode_forms(torch, et, dh, xh, runs, card):
-    """Phase 14b: each run's streams decoded through every upload form
-    (the chain pinned to it; the nibble tiers pass a batch they cannot
-    hold to the byte form, as the default chain does): bit-equal to the
-    index form, up bytes per significant coefficient, the ``dec:`` stage
-    times, the wall, and the launches of X1 and K2.  Returns {run label:
+    """Phase 14b: each run's streams decoded through both upload forms
+    (blocked Rice, the form below the compaction cap, and the index form
+    in its place): bit-equal to the index form, up bytes per significant
+    coefficient, the ``dec:`` stage times, the wall, and the launches of
+    X1 and K2.  Returns {run label:
     the arguments of X1's first call on that run's streams} (the blocks of
     14c)."""
     from ebcc_tpu_torch.core import codec, transfer
@@ -1896,17 +1892,18 @@ def phase_decode_forms(torch, et, dh, xh, runs, card):
 
     for label, (x, config, mb, streams) in runs.items():
         outs = {}
-        for form, chain in UPLOAD_FORMS.items():
+        for form in ("rice", "index"):
             seen = []
 
-            def pinned(nnz, s, chain=chain):
-                seen.append(nnz)
-                return list(chain)
+            def upload(idx, *a, real=getattr(codec, f"_upload_{form}"),
+                       seen=seen):
+                seen.append(idx.size)
+                return real(idx, *a)
 
             dh.reset_launch_counts()
             xh.reset_launch_counts()
             transfer.reset_link_stats()
-            with patched(codec, "_upload_chain", pinned), \
+            with patched(codec, "_upload_rice", upload), \
                     patched(xh, "rice_unpack_qflat", capturing_x1):
                 dec, wall, snap = timed_stages(
                     et.decode_frames_device, streams, max_batch=mb)
@@ -1930,7 +1927,7 @@ def phase_decode_forms(torch, et, dh, xh, runs, card):
             err = float((outs["rice"] - x).abs().max())
             if err > config.error:
                 raise AssertionError(f"{label}: decode error {err}")
-        print(f"decode {label}: every upload form bit-equal to the index "
+        print(f"decode {label}: the Rice upload bit-equal to the index "
               "form")
     return captured
 
@@ -2138,42 +2135,8 @@ def x1_profile(torch, fn, calls=5):
             statistics.median(counts[1:]))
 
 
-def phase_u16(torch, et, dh, frames, main_streams, card):
-    """Phase 14d: the 32 numpy frames through ``encode_frames_device`` with
-    the u16 upload: every frame within 0.5 of the float originals under
-    the port's decoder, upload bytes per point against the float upload,
-    stream bytes against it, K1 launched."""
-    from ebcc_tpu_torch.core import transfer
-    n = frames.shape[0]
-    x = frames.reshape(n, 1, H, W)
-    config = era5_config(et, n)
-    runs = {}
-    for name, opts in (("float32", et.EncodeOptions()),
-                       ("u16", et.EncodeOptions(u16_upload=True))):
-        dh.reset_launch_counts()
-        transfer.reset_link_stats()
-        streams, wall = timed(et.encode_frames_device, x, config, opts,
-                              max_batch=4)
-        runs[name] = (streams, transfer.LINK_STATS["up"], wall,
-                      dh.launch_counts()["dwt2d_quantize"])
-    if runs["float32"][0] != main_streams:
-        raise AssertionError("the numpy float32 upload differs from phase "
-                             "3's streams")
-    streams = runs["u16"][0]
-    dec = et.decode_frames_device(streams, max_batch=4)
-    err = float((dec - torch.from_numpy(x).cuda()).abs().max())
-    for name, (st, up, wall, k1) in runs.items():
-        print(f"u16 (d) on {card}: {name} upload {up} B = {up / x.size:.4f} "
-              f"B per point, streams {sum(map(len, st))} B, encode wall "
-              f"{wall:.4f} s, K1 launches {k1}")
-    print(f"u16 (d): max error {err:.6f} against the float originals")
-    if err > config.error or runs["u16"][3] == 0:
-        raise AssertionError(f"u16 upload: error {err}, K1 launches "
-                             f"{runs['u16'][3]}")
-
-
 def phase_routing(et, frames, card):
-    """Phase 14e: the link probe of the card both ways, ``backend_choice``
+    """Phase 14d: the link probe of the card both ways, ``backend_choice``
     for encode and decode, and under ``EBCC_LINK_MBPS=1`` the decision and
     an explicit native route's encode, decoded on the card within 0.5 (the
     host codec builds: phase 12a).  Returns what ran."""
@@ -2384,12 +2347,12 @@ def phase_plugin(et, frames, tmp, card):
 
 def phase_native_built(build_seconds, routed):
     """Phase 15c: native routing builds on this machine now (phase 12a's
-    library) and phases 12e and 14e ran their routed calls."""
+    library) and phases 12e and 14d ran their routed calls."""
     secs = {k: round(v, 2) for k, v in build_seconds.items()
             if k.startswith("ebcc_native_codec")}
     print(f"native routing: libebcc_native_codec.so built in {secs} s; "
           f"phase 12e "
-          f"(routed container encode and decodes) and 14e ({routed}) ran "
+          f"(routed container encode and decodes) and 14d ({routed}) ran "
           f"within 0.5")
 
 
@@ -2680,7 +2643,7 @@ def main():
         phase_cli(frames, tmp, card)
         phase_trace(torch, et, frames, tmp, card)
 
-    # ---- phase 14: the exchange forms, X1, the u16 upload, routing ----
+    # ---- phase 14: the exchange forms, X1, routing ----
     from ebcc_tpu_torch.ops import exchange_hopper as xh
     n = frames.shape[0]
     x_main = torch.from_numpy(frames).reshape(n, 1, H, W).cuda()
@@ -2692,7 +2655,6 @@ def main():
     first_calls = phase_decode_forms(torch, et, dh, xh, runs, card)
     x1 = phase_x1(torch, xh, first_calls, launches["rice_unpack_qflat"],
                   card)
-    phase_u16(torch, et, dh, frames, main_streams, card)
     routed = phase_routing(et, frames, card)
 
     # ---- phase 15: legacy streams, the HDF5 plugin, PGO, reference_bin ----

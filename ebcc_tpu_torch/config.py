@@ -194,12 +194,6 @@ class EncodeOptions:
     base_error_quantile: float = 1e-6
     disable_pure_base_fallback: bool = False
     disable_mean_adjustment: bool = False
-    # Opt-in host->device transfer optimization: upload frames as u16 (half
-    # the bytes) with the quantization slack subtracted from the device
-    # target (bound stays exact).  Off by default because it perturbs
-    # streams slightly, which would break the byte-identity guarantee
-    # between host-upload and device-resident/sharded encode paths.
-    u16_upload: bool = False
 
     @classmethod
     def from_env(cls) -> "EncodeOptions":
@@ -214,8 +208,6 @@ class EncodeOptions:
             opts.disable_pure_base_fallback = True
         if os.environ.get("EBCC_DISABLE_MEAN_ADJUSTMENT"):
             opts.disable_mean_adjustment = True
-        if os.environ.get("EBCC_U16_UPLOAD"):
-            opts.u16_upload = True
         return opts
 
     @property

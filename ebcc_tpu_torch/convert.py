@@ -6,7 +6,9 @@ both packages read and write).  These helpers build the port's
 ``CodecConfig`` and ``EncodeOptions`` from the JAX package's instances passed
 as plain values (``dataclasses.asdict(...)``), so the port never imports the
 JAX package.  An unknown or missing field raises: the two copies of
-``config.py`` must stay field-for-field equal.
+``config.py`` must stay field-for-field equal, except for the options
+that only the JAX package has (its u16 upload): off, they carry across as
+nothing; on, they raise.
 """
 
 from __future__ import annotations
@@ -34,4 +36,9 @@ def config_from_reference(fields: dict) -> CodecConfig:
 
 def options_from_reference(fields: dict) -> EncodeOptions:
     """Port ``EncodeOptions`` from ``dataclasses.asdict(ebcc_tpu.EncodeOptions)``."""
-    return _build(EncodeOptions, fields)
+    names = {f.name for f in dataclasses.fields(EncodeOptions)}
+    on = sorted(k for k in set(fields) - names if fields[k])
+    if on:
+        raise ValueError(f"EncodeOptions: the port has no {on}")
+    return _build(EncodeOptions,
+                  {k: v for k, v in fields.items() if k in names})

@@ -34,17 +34,15 @@ Entropy coding and plane packing run on the host, in the port's own C++
 of every encode (``EBCC_NO_NATIVE_PACK=1`` selects its numpy twin) and the
 plane unpacker of every decode (``EBCC_NO_NATIVE_UNPACK=1``, likewise).
 
-The host<->device exchange is the reference's (:mod:`.transfer`): encode
-outputs come back as Rice-coded (position gap, value) pairs compacted on
-the device (``EBCC_NO_RICE=1``, or too many pairs, takes a
-``torch.nonzero`` fetch of int32 positions and values), and a decode
-uploads blocked-Rice lanes that the X1 kernel decodes on the card, with
-nibble tiers (``EBCC_NO_RICE_UPLOAD=1``), bytes
-(``EBCC_NO_NIBBLE_UPLOAD=1``) and a bitmap or the index vector
-(``EBCC_NO_BYTE_UPLOAD=1``) as the fallbacks.  Every leg counts its bytes
-in ``transfer.LINK_STATS``.  ``EncodeOptions.u16_upload`` /
-``EBCC_U16_UPLOAD=1`` uploads numpy frames of intra error-bounded encodes
-as uint16 with the quantization slack taken off the target.
+The host<->device exchange (:mod:`.transfer`) has one form on each side
+of ``transfer.COMPACT_CAP_LIMIT``, in both directions.  Up to the cap,
+encode outputs come back as Rice-coded (position gap, value) pairs
+compacted on the device, and a decode uploads blocked-Rice lanes that the
+X1 kernel decodes on the card.  Above it, or without the port's host
+library, an encode fetches int32 positions and values through
+``torch.nonzero`` and a decode uploads them for one scatter (the index
+form; a decode without the library packs its Rice lanes in numpy).  Every
+leg counts its bytes in ``transfer.LINK_STATS``.
 
 Native routing: ``EBCC_ENCODE_BACKEND`` / ``EBCC_DECODE_BACKEND`` =
 ``native`` (or ``host``) sends ``encode``, ``encode_chunked`` (and so
@@ -61,7 +59,10 @@ Reference-format streams (EBCC/EBCK) are decoded on the host by
 
 from __future__ import annotations
 
+import collections
+import collections.abc
 import dataclasses
+import itertools
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -84,6 +85,79 @@ from . import entropy, kernels, routing, stream, transfer
 RESIDUAL_DROP_BYTES = 16
 # Chunks per device batch of the container paths (reference codec.py:48).
 DEFAULT_MAX_BATCH = 32
+
+# The pipelines' submit-ahead depths and second-stage worker counts: encode
+# fetch workers (at most one per slice after the first) with the
+# assemblers that entropy-code the fetched slices, the device decode's
+# batches in flight, the roundtrip's fetch workers with the posters that
+# assemble and decode each slice, and the chunk decode's batches in flight.
+_ENCODE_DEPTH = 6
+_ASSEMBLERS = 2
+_DEVICE_DECODE_DEPTH = 2
+_POSTERS = 2
+_CHUNK_DECODE_DEPTH = 1
+
+
+# ---------------------------------------------------------------------------
+# Host thread pools.  Every pool lives for one call: a shared pool could
+# deadlock, since an assembler worker maps its chunks onto a pool of its own.
+# ---------------------------------------------------------------------------
+
+def _host_pool_map(fn, items, workers: Optional[int] = None) -> list:
+    """``fn`` over ``items`` on a pool of at most ``workers`` threads (one
+    per core by default) and one per item; on the caller's thread where
+    that is one.  The host codec, zstd and the native packers release the
+    GIL."""
+    items = list(items)
+    workers = min(workers or os.cpu_count() or 1, len(items))
+    if workers <= 1:
+        return [fn(it) for it in items]
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(fn, items))
+
+
+def _enc_wait():
+    return stage("enc: wait worker")
+
+
+def _dec_wait():
+    return stage("dec: wait worker")
+
+
+def _submit_ahead(fn, items, depth: Optional[int], wait, workers=None):
+    """Yield ``fn(item)`` for each of ``items`` in order, each call run on a
+    per-call pool of ``workers`` threads (``depth`` by default) through
+    ``timing.submit``, so that the workers' spans keep the caller's span as
+    parent; ``wait()`` opens the caller's wait span (``_enc_wait`` or
+    ``_dec_wait``).
+
+    With a ``depth``, at most that many calls are in flight: after each
+    result is waited for, in a wait span of its own, the next item is
+    submitted.  With ``depth=None`` every item is submitted as it comes
+    (``items`` may be a generator, such as another stage of this helper,
+    whose results then go on as they arrive), and the results are waited
+    for together in one wait span.  A sequence of one item runs on the
+    caller's thread and opens no wait span.  An exception in a call reaches
+    the caller when its result is waited for."""
+    if isinstance(items, collections.abc.Sequence) and len(items) == 1:
+        yield fn(items[0])
+        return
+    it = iter(items)
+    with ThreadPoolExecutor(max_workers=workers or depth) as pool:
+        if depth is None:
+            futs = [timing.submit(pool, fn, item) for item in it]
+            with wait():
+                results = [f.result() for f in futs]
+            yield from results
+            return
+        futs = collections.deque(timing.submit(pool, fn, item)
+                                 for item in itertools.islice(it, depth))
+        while futs:
+            with wait():
+                out = futs.popleft().result()
+            futs.extend(timing.submit(pool, fn, item)
+                        for item in itertools.islice(it, 1))
+            yield out
 
 
 def _padded_hw(h: int, w: int, levels_max: int) -> Tuple[int, int]:
@@ -302,40 +376,6 @@ def _on_device(xb, device):
     return xb
 
 
-# The u16 upload applies only when every chunk's absolute target is at
-# least this many times the u16 quantization slack, so the slack takes at
-# most ~3% of the error budget (reference codec.py:1337-1350).
-_U16_MIN_TARGET_OVER_SLACK = 32.0
-
-
-def _u16_upload_ok(minv: np.ndarray, maxv: np.ndarray,
-                   config: CodecConfig) -> bool:
-    slack = (maxv - minv) / (2.0 * kernels.BASE_SCALE)
-    if config.residual_mode == cfg.RESIDUAL_RELATIVE_ERROR:
-        targets = config.error * (maxv - minv)
-    else:
-        targets = np.full_like(slack, config.error)
-    return bool(np.all(targets >= _U16_MIN_TARGET_OVER_SLACK * slack))
-
-
-def _u16_batch(xb, config: CodecConfig, opts: EncodeOptions):
-    """The u16 upload of a numpy batch of an intra error-bounded encode
-    (reference codec.py:1402-1416) -> (xq uint16, minv, maxv), or None
-    when the option is off, the batch is a tensor, or a target is too
-    tight for the slack (the float32 upload then)."""
-    if not (opts.u16_upload and isinstance(xb, np.ndarray)):
-        return None
-    minv = xb.min(axis=(1, 2, 3)).astype(np.float32)
-    maxv = xb.max(axis=(1, 2, 3)).astype(np.float32)
-    if not _u16_upload_ok(minv, maxv, config):
-        return None
-    rngv = np.where(minv == maxv, np.float32(1.0), maxv - minv)
-    xq = np.rint((xb - minv[:, None, None, None])
-                 / rngv[:, None, None, None]
-                 * kernels.BASE_SCALE).astype(np.uint16)
-    return xq, minv, maxv
-
-
 def _finish_streams(streams: List[bytes], config: CodecConfig,
                     masks) -> List[bytes]:
     """Log-domain flag and mask sections, added to assembled streams."""
@@ -418,11 +458,7 @@ def _lossless_encode_frames(x_batch: np.ndarray,
         return stream.pack_frame_stream(header, payload, b"")
 
     with stage("lossless encode (host)"):
-        if b <= 1:
-            return [one(i) for i in range(b)]
-        with ThreadPoolExecutor(max_workers=min(os.cpu_count() or 1,
-                                                b)) as pool:
-            return list(pool.map(one, range(b)))
+        return _host_pool_map(one, range(b))
 
 
 def _lossless_decode_streams(headers, streams: List[bytes]) -> np.ndarray:
@@ -460,12 +496,7 @@ def _lossless_decode_streams(headers, streams: List[bytes]) -> np.ndarray:
             hd.n_frames, hd.height, hd.width)
 
     with stage("lossless decode (host)"):
-        if n <= 1:
-            parts = [one(i) for i in range(n)]
-        else:
-            with ThreadPoolExecutor(max_workers=min(os.cpu_count() or 1,
-                                                    n)) as pool:
-                parts = list(pool.map(one, range(n)))
+        parts = _host_pool_map(one, range(n))
     return np.stack(parts)
 
 
@@ -870,8 +901,7 @@ def _assemble_temporal_stream(res: _ChunkResult, config: CodecConfig,
     if n_frames <= 2 or not parallel_deltas:
         parts = [delta_one(t) for t in range(1, n_frames)]
     else:
-        with ThreadPoolExecutor(max_workers=min(4, n_frames - 1)) as pool:
-            parts = list(pool.map(delta_one, range(1, n_frames)))
+        parts = _host_pool_map(delta_one, range(1, n_frames), 4)
     records = [p[0] for p in parts]
     dpayloads = [p[1] for p in parts]
 
@@ -1007,10 +1037,7 @@ def _assemble_batch(out_np, config, opts, n_frames, h, w, backend,
         fn = lambda i: _assemble_error_mode_stream(
             _ChunkResult(out_np, i), config, opts, n_frames, h, w, backend)
     with stage("assemble+zstd"):
-        if n_chunks <= 1:
-            return [fn(i) for i in range(n_chunks)]
-        with ThreadPoolExecutor(max_workers=min(4, n_chunks)) as pool:
-            return list(pool.map(fn, range(n_chunks)))
+        return _host_pool_map(fn, range(n_chunks), 4)
 
 
 # ---------------------------------------------------------------------------
@@ -1054,12 +1081,8 @@ def _fetch_small(small: dict) -> dict:
 
 
 def _rice_enabled() -> bool:
-    """The compact Rice exchange and the blocked-Rice packer need the
-    port's host library (its Rice readers and packer): on whenever it
-    builds and loads; ``EBCC_NO_RICE=1`` turns it off (reference
-    codec.py:710-720)."""
-    if os.environ.get("EBCC_NO_RICE"):
-        return False
+    """Whether the port's host library (the compact exchange's Rice
+    readers, the blocked-Rice packer) builds and loads."""
     try:
         native.load_host()
         return True
@@ -1182,7 +1205,7 @@ def _fetch_encode_outputs(out: dict, b: int, d0: int, hp: int,
     copy, then ``transfer.compact_rice_exchange`` at the bucketed true
     count, a 4-byte copy of its exact size and one copy of the pair buffer
     (~1.3 B per significant coefficient), Rice-decoded on the host.
-    Without it (``EBCC_NO_RICE=1``), or above ``COMPACT_CAP_LIMIT``, a
+    Without it, or above ``COMPACT_CAP_LIMIT``, a
     ``torch.nonzero`` over the flat kept values (sorted (layer, chunk)
     order, the pairs the reference's bitmap fallback derives) and one copy
     each of the int32 positions and values."""
@@ -1236,27 +1259,15 @@ def _encode_to_host(xb, config: CodecConfig, opts: EncodeOptions,
     levels = dict(base_levels=config.base_levels,
                   res_levels=config.residual_levels)
     relative = config.residual_mode == cfg.RESIDUAL_RELATIVE_ERROR
-    intra = (config.residual_mode != cfg.RESIDUAL_NONE
-             and not _temporal_active(config, n_frames))
-    u16 = _u16_batch(xb, config, opts) if intra else None
-    if u16 is not None:
-        xq, minv, maxv = (transfer.upload(a, device) for a in (
-            u16[0].view(np.int16), u16[1], u16[2]))
-    else:
-        xb = _on_device(xb, device)
+    xb = _on_device(xb, device)
     with stage("enc: device"):
         if config.residual_mode == cfg.RESIDUAL_NONE:
             out = kernels.encode_batch_rate_only(
                 xb, _rate_budget(config, n_frames, h, w), **levels)
-        elif not intra:
+        elif _temporal_active(config, n_frames):
             out = kernels.encode_batch_temporal(
                 xb, config.error, opts.base_quantile_target,
                 relative_mode=relative, **levels)
-        elif u16 is not None:
-            out = kernels.encode_batch_u16(
-                xq, minv, maxv, config.error, opts.base_quantile_target,
-                relative_mode=relative,
-                use_centered=not opts.disable_mean_adjustment, **levels)
         else:
             out = kernels.encode_batch(
                 xb, config.error, opts.base_quantile_target,
@@ -1269,34 +1280,26 @@ def _pipeline_encode_slices(slices, config: CodecConfig, opts: EncodeOptions,
                             n_frames, h, w, backend: int,
                             device=None) -> List[bytes]:
     """Encode a sequence of (B, n_frames, h, w) batch slices, pipelined as
-    in the reference (``_pipeline_encode_slices``, codec.py:1462-1495):
-    ``EBCC_PIPELINE_DEPTH`` fetch workers (6 by default) keep the device
-    encode and fetch of later slices in flight while 2 assembler workers
-    entropy-code the fetched ones.  A numpy slice is uploaded to ``device``
-    by its fetch worker, so only the slices in flight are on the device.
-    The streams do not depend on how the chunks are sliced."""
-    def run(sl):
-        return _encode_to_host(sl, config, opts, device)
+    in the reference (``_pipeline_encode_slices``, codec.py:1462-1495): up
+    to ``_ENCODE_DEPTH`` fetch workers keep the device encode and fetch of
+    later slices in flight while ``_ASSEMBLERS`` workers entropy-code the
+    fetched ones.  A numpy slice is uploaded to ``device`` by its fetch
+    worker, so only the slices in flight are on the device.  The streams do
+    not depend on how the chunks are sliced."""
+    fetched = zip(_submit_ahead(
+        lambda sl: _encode_to_host(sl, config, opts, device), slices,
+        min(_ENCODE_DEPTH, len(slices) - 1), _enc_wait), slices)
+
+    def assemble(pair):
+        out_np, sl = pair
+        return _assemble_batch(out_np, config, opts, n_frames, h, w, backend,
+                               sl.shape[0])
 
     if len(slices) == 1:
-        return _assemble_batch(run(slices[0]), config, opts, n_frames, h, w,
-                               backend, slices[0].shape[0])
-    depth = min(int(os.environ.get("EBCC_PIPELINE_DEPTH", "6")),
-                len(slices) - 1)
-    with ThreadPoolExecutor(max_workers=depth) as fetcher, \
-            ThreadPoolExecutor(max_workers=2) as assembler:
-        futs = [timing.submit(fetcher, run, s) for s in slices[:depth]]
-        asm = []
-        for i, sl in enumerate(slices):
-            with stage("enc: wait worker"):
-                out_np = futs[i].result()
-            if i + depth < len(slices):
-                futs.append(timing.submit(fetcher, run, slices[i + depth]))
-            asm.append(timing.submit(
-                assembler, _assemble_batch, out_np, config, opts, n_frames,
-                h, w, backend, sl.shape[0]))
-        with stage("enc: wait worker"):
-            return [s for f in asm for s in f.result()]
+        return assemble(next(fetched))
+    return [s for streams in _submit_ahead(assemble, fetched, None, _enc_wait,
+                                           workers=_ASSEMBLERS)
+            for s in streams]
 
 
 def encode(data: np.ndarray, config: CodecConfig,
@@ -1451,13 +1454,9 @@ def _unpack_planes(raws, shape):
             pos, vv = native.planes_to_sparse(raw, kept, pb, d0, hp, wp)
             return pos.astype(np.int64) + (layer * ne + j) * sc, vv
 
+        # A one-entry batch unpacks its two layers on the caller's thread.
         tasks = [(layer, j) for layer in (0, 1) for j in range(ne)]
-        if ne <= 1:
-            results = [one(t) for t in tasks]
-        else:
-            with ThreadPoolExecutor(max_workers=min(4, 2 * ne)) as pool:
-                results = list(pool.map(one, tasks))
-        for r in results:
+        for r in _host_pool_map(one, tasks, 4 if ne > 1 else 1):
             if r is not None and r[0].size:
                 parts_idx.append(r[0])
                 parts_val.append(r[1])
@@ -1472,9 +1471,10 @@ def _decode_streams_device(streams: List[bytes], device):
     mask bitmaps).  NaNs are not restored here.
 
     The host entropy-decodes the payloads and extracts the sorted (index,
-    signed kept-value) pairs; they go up in the first form of
-    :func:`_upload_chain` that takes them (blocked Rice by default), the
-    device rebuilds the dense coefficient vector from them, and the
+    signed kept-value) pairs; they go up as blocked-Rice lanes up to
+    ``transfer.COMPACT_CAP_LIMIT`` pairs and as the index form above it
+    (:func:`_upload_rice`, :func:`_upload_index`), the device rebuilds
+    the dense coefficient vector from them, and the
     inverse transforms rebuild the batch.  Temporal
     streams decode as one single-frame entry per frame (frame 0's two
     layers, then one delta layer per later frame), which
@@ -1601,11 +1601,7 @@ def _decode_streams_device(streams: List[bytes], device):
         return base, res
 
     with stage("dec: entropy decode"):
-        if ne <= 1:
-            raws = [_decompress_one(j) for j in range(ne)]
-        else:
-            with ThreadPoolExecutor(max_workers=min(4, ne)) as pool:
-                raws = list(pool.map(_decompress_one, range(ne)))
+        raws = _host_pool_map(_decompress_one, range(ne), 4)
 
     with stage("dec: unpack planes"):
         idx, vals = _unpack_planes(raws, (ent_d0, hp, wp))
@@ -1615,10 +1611,12 @@ def _decode_streams_device(streams: List[bytes], device):
                   out_hw=(h, w), has_residual=any_residual,
                   grid_shape=(ne, ent_d0, hp, wp))
         scalars = (base_cut, res_cut, minval, maxval, rmin, rmax)
-        for form in _upload_chain(idx.size, ne * sc):
-            out = _UPLOADS[form](idx, vals, scalars, device, kw)
-            if out is not None:
-                break
+        # Blocked Rice's lane offsets are int32 in the reference: above the
+        # cap the pairs go up in the index form.
+        rice = (transfer.bucket_count(max(1, idx.size))
+                <= transfer.COMPACT_CAP_LIMIT)
+        out = (_upload_rice if rice else _upload_index)(idx, vals, scalars,
+                                                         device, kw)
         if temporal:
             out = kernels.temporal_accumulate(out, t_frames)
         if log_flags.any():
@@ -1630,27 +1628,6 @@ def _decode_streams_device(streams: List[bytes], device):
 def _put(a: np.ndarray, device):
     """One host array uploaded to ``device``, its bytes counted."""
     return transfer.upload(np.ascontiguousarray(a), device)
-
-
-def _upload_chain(nnz: int, s: int) -> list:
-    """The decode upload forms to try, in order, for ``nnz`` pairs over a
-    coefficient space of ``s`` per layer (reference codec.py:1866-1878,
-    :1880): blocked Rice (unless ``EBCC_NO_RICE_UPLOAD=1`` or above
-    ``COMPACT_CAP_LIMIT``: its lane offsets are int32 in the reference),
-    nibble tiers (unless ``EBCC_NO_NIBBLE_UPLOAD=1``; a batch whose escapes
-    overflow the tiers passes on), bytes; with ``EBCC_NO_BYTE_UPLOAD=1``
-    the bitmap where it is smaller than the int32 index vector, else the
-    index vector."""
-    cap = transfer.bucket_count(max(1, nnz))
-    if os.environ.get("EBCC_NO_BYTE_UPLOAD"):
-        return ["bitmap"] if 4 * cap > (2 * s) // 8 else ["index"]
-    chain = []
-    if (not os.environ.get("EBCC_NO_RICE_UPLOAD")
-            and cap <= transfer.COMPACT_CAP_LIMIT):
-        chain.append("rice")
-    if not os.environ.get("EBCC_NO_NIBBLE_UPLOAD"):
-        chain.append("nibble")
-    return chain + ["bytes"]
 
 
 def _floats(scalars) -> np.ndarray:
@@ -1698,101 +1675,14 @@ def _upload_rice(idx, vals, scalars, device, kw):
             **kw)
 
 
-def _upload_nibble(idx, vals, scalars, device, kw):
-    """Nibble-tier upload in one buffer (reference codec.py:1931-1974), or
-    None when the escapes overflow the tiers."""
-    cap = transfer.bucket_count(max(1, idx.size))
-    gt, vt = transfer.nibble_pack_sparse_host(idx, vals)
-    if not (transfer.nibble_fits(gt, cap, "gap")
-            and transfer.nibble_fits(vt, cap, "val")):
-        return None
-    base_cut, res_cut = scalars[:2]
-    ne = base_cut.size
-    nb2 = (cap + 1) // 2
-    g8c, g16c, g32c = transfer.nib_tier_caps(cap, "gap")
-    v8c, v16c, v32c = transfer.nib_tier_caps(cap, "val")
-    n_bytes = 2 * nb2 + g8c + v8c + 2 * (g16c + v16c)
-    n_ints = g32c + v32c + 2 * ne + 1
-    buf = np.zeros(n_bytes + 4 * n_ints + 16 * ne, np.uint8)
-    o = 0
-    for seg, size in ((transfer.pack_nibbles(gt[0], cap), nb2),
-                      (transfer.pack_nibbles(vt[0], cap), nb2),
-                      (gt[1], g8c), (vt[1], v8c),
-                      (gt[2].astype("<u2").view(np.uint8), 2 * g16c),
-                      (vt[2].astype("<u2").view(np.uint8), 2 * v16c)):
-        buf[o:o + seg.size] = seg
-        o += size
-    ints = np.zeros(n_ints, np.int32)
-    ints[:gt[3].size] = gt[3]
-    ints[g32c:g32c + vt[3].size] = vt[3]
-    ints[g32c + v32c:g32c + v32c + ne] = base_cut
-    ints[g32c + v32c + ne:g32c + v32c + 2 * ne] = res_cut
-    ints[g32c + v32c + 2 * ne] = idx.size
-    buf[n_bytes:n_bytes + 4 * n_ints] = ints.view(np.uint8)
-    buf[n_bytes + 4 * n_ints:] = _floats(scalars).reshape(-1).view(np.uint8)
-    return kernels.decode_batch_sparse_nibble_fused(
-        transfer.sliced_put(buf, device), cap=cap, **kw)
-
-
-def _upload_bytes(idx, vals, scalars, device, kw):
-    """Byte-coded upload in one buffer per type (reference
-    codec.py:1975-2001)."""
-    cap = transfer.bucket_count(max(1, idx.size))
-    base_cut, res_cut = scalars[:2]
-    ne = base_cut.size
-    g8, g_ov, v8, v_ov16, v_ov32 = transfer.byte_pack_sparse_host(idx, vals)
-    gcap = transfer.overflow_bucket(max(1, g_ov.size))
-    vcap = transfer.overflow_bucket(max(1, v_ov16.size))
-    wcap = transfer.overflow_bucket(max(1, v_ov32.size))
-    bytes_u8 = np.zeros(2 * cap + 2 * vcap, np.uint8)
-    bytes_u8[:g8.size] = g8
-    bytes_u8[cap:cap + v8.size] = v8
-    bytes_u8[2 * cap:2 * cap + 2 * v_ov16.size] = (
-        v_ov16.astype("<u2").view(np.uint8))
-    ints = np.zeros(gcap + wcap + 2 * ne + 1, np.int32)
-    ints[:g_ov.size] = g_ov
-    ints[gcap:gcap + v_ov32.size] = v_ov32
-    ints[gcap + wcap:gcap + wcap + ne] = base_cut
-    ints[gcap + wcap + ne:gcap + wcap + 2 * ne] = res_cut
-    ints[gcap + wcap + 2 * ne] = idx.size
-    return kernels.decode_batch_sparse_bytes(
-        _put(bytes_u8, device), _put(ints, device),
-        _put(_floats(scalars), device), cap=cap, gcap=gcap, vcap=vcap,
-        wcap=wcap, **kw)
-
-
-def _padded_vals(vals: np.ndarray, cap: int) -> np.ndarray:
-    """The values as int16 when they fit (else int32), zero-padded to cap."""
-    as16 = bool(np.abs(vals).max() < (1 << 15)) if vals.size else True
-    out = np.zeros(cap, np.int16 if as16 else np.int32)
-    out[:vals.size] = vals
-    return out
-
-
-def _upload_bitmap(idx, vals, scalars, device, kw):
-    """Packed significance bitmap of the whole coefficient space plus the
-    values (reference codec.py:2002-2012)."""
-    b, d0, hp, wp = kw["grid_shape"]
-    sigb = np.zeros(2 * b * d0 * hp * wp, np.uint8)
-    sigb[idx] = 1
-    cap = transfer.bucket_count(max(1, idx.size))
-    return kernels.decode_batch_sparse_bitmap(
-        _put(np.packbits(sigb), device), _put(_padded_vals(vals, cap), device),
-        *(_put(a, device) for a in scalars), **kw)
-
-
 def _upload_index(idx, vals, scalars, device, kw):
-    """The int32 index vector and the values (int16 where they fit), one
-    copy each, and one scatter on the device."""
+    """The int32 index vector and the values (int16 where they all fit),
+    one copy each, and one scatter on the device."""
+    as16 = bool(np.abs(vals).max() < (1 << 15)) if vals.size else True
     return kernels.decode_batch_sparse(
         _put(idx.astype(np.int32), device).to(torch.int64),
-        _put(_padded_vals(vals, vals.size), device),
+        _put(vals.astype(np.int16 if as16 else np.int32), device),
         *(_put(a, device) for a in scalars), **kw)
-
-
-_UPLOADS = {"rice": _upload_rice, "nibble": _upload_nibble,
-            "bytes": _upload_bytes, "bitmap": _upload_bitmap,
-            "index": _upload_index}
 
 
 def _decode_streams(streams: List[bytes], device) -> np.ndarray:
@@ -1883,18 +1773,9 @@ def decode_frames_device(streams: List[bytes],
         return _decode_device_batch(streams, dev)
     batches = [streams[s:s + max_batch]
                for s in range(0, len(streams), max_batch)]
-    depth = min(2, len(batches))
-    outs = []
-    with ThreadPoolExecutor(max_workers=depth) as worker:
-        futs = [timing.submit(worker, _decode_device_batch, bt, dev)
-                for bt in batches[:depth]]
-        for i in range(len(batches)):
-            with stage("dec: wait worker"):
-                outs.append(futs[i].result())
-            if i + depth < len(batches):
-                futs.append(timing.submit(worker, _decode_device_batch,
-                                          batches[i + depth], dev))
-    return torch.cat(outs, dim=0)
+    return torch.cat(list(_submit_ahead(
+        lambda bt: _decode_device_batch(bt, dev), batches,
+        _DEVICE_DECODE_DEPTH, _dec_wait)), dim=0)
 
 
 def roundtrip_frames_device(x, config: CodecConfig,
@@ -1925,34 +1806,24 @@ def roundtrip_frames_device(x, config: CodecConfig,
 
     starts = list(range(0, b, max_batch))
     slices = [x[s:s + max_batch] for s in starts]
-    run = lambda sl: _encode_to_host(sl, internal, opts, dev)
+    fetched = zip(_submit_ahead(
+        lambda sl: _encode_to_host(sl, internal, opts, dev), slices,
+        min(_ENCODE_DEPTH, max(1, len(slices) - 1)), _enc_wait), starts,
+        slices)
 
-    def post_batch(i, out_np, count):
-        """Assemble slice i's streams, then start its device decode."""
+    def post_batch(item):
+        """Assemble a slice's streams, then start its device decode."""
+        out_np, s0, sl = item
+        count = sl.shape[0]
         streams = _assemble_batch(out_np, internal, opts, n_frames, h, w,
                                   backend, count)
-        s0 = starts[i]
         streams = _finish_streams(
             streams, config,
             None if masks is None else masks[s0:s0 + count])
         return streams, _decode_device_batch(streams, dev)
 
-    depth = min(int(os.environ.get("EBCC_PIPELINE_DEPTH", "6")),
-                max(1, len(slices) - 1))
-    posters = int(os.environ.get("EBCC_PIPELINE_POSTERS", "2"))
-    with ThreadPoolExecutor(max_workers=depth) as fetcher, \
-            ThreadPoolExecutor(max_workers=max(1, posters)) as poster:
-        futs = [timing.submit(fetcher, run, s) for s in slices[:depth]]
-        post_futs = []
-        for i, sl in enumerate(slices):
-            with stage("enc: wait worker"):
-                out_np = futs[i].result()
-            if i + depth < len(slices):
-                futs.append(timing.submit(fetcher, run, slices[i + depth]))
-            post_futs.append(timing.submit(poster, post_batch, i, out_np,
-                                           sl.shape[0]))
-        with stage("dec: wait worker"):
-            results = [f.result() for f in post_futs]
+    results = list(_submit_ahead(post_batch, fetched, None, _dec_wait,
+                                 workers=_POSTERS))
     streams_out = [s for streams, _ in results for s in streams]
     return streams_out, torch.cat([d for _, d in results], dim=0)
 
@@ -2031,14 +1902,6 @@ def _encode_chunk_set(chunks: np.ndarray, chunk_cfg: CodecConfig,
                                       chunk_cfg.residual_levels))
         max_batch = min(max_batch, _max_safe_batch(n_frames * hp * wp))
     return encode_frames_device(chunks, chunk_cfg, opts, max_batch, device)
-
-
-def _host_pool_map(fn, items) -> list:
-    """``fn`` over ``items`` on a pool of one thread per core (at most one
-    per item); the host codec releases the GIL."""
-    workers = max(1, min(os.cpu_count() or 1, len(items)))
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        return list(pool.map(fn, items))
 
 
 def _native_encode_chunks(chunks: np.ndarray, config: CodecConfig,
@@ -2271,24 +2134,19 @@ def _decode_chunk_subset(header, chunk_streams, counts, out_dims, max_batch,
 
 def _decode_chunk_arrays(chunk_streams, max_batch, device) -> np.ndarray:
     """Chunk streams -> their (N, n_frames, h, w) host arrays, decoded on
-    ``device`` ``max_batch`` chunks at a time.  One worker parses,
-    entropy-decodes and uploads batch k+1 while the device decodes batch k
-    and the host fetches it.  Lossless chunks decode on the host only."""
+    ``device`` ``max_batch`` chunks at a time.  With more than one batch,
+    one worker parses, entropy-decodes and uploads batch k+1 while the
+    device decodes batch k and the host fetches it; one batch is decoded on
+    the caller's thread.  Lossless chunks decode on the host only."""
     arr = _maybe_lossless_batch(chunk_streams)
     if arr is not None:
         return arr
     batches = [chunk_streams[s:s + max_batch]
                for s in range(0, len(chunk_streams), max_batch)]
     decoded = []
-    with ThreadPoolExecutor(max_workers=1) as worker:
-        fut = timing.submit(worker, _decode_streams_device, batches[0],
-                            device)
-        for i in range(len(batches)):
-            with stage("dec: wait worker"):
-                parts = fut.result()
-            if i + 1 < len(batches):
-                fut = timing.submit(worker, _decode_streams_device,
-                                    batches[i + 1], device)
-            with stage("dec: output fetch"):
-                decoded.append(_finish_host(*parts))
+    for parts in _submit_ahead(
+            lambda bt: _decode_streams_device(bt, device), batches,
+            _CHUNK_DECODE_DEPTH, _dec_wait):
+        with stage("dec: output fetch"):
+            decoded.append(_finish_host(*parts))
     return np.concatenate(decoded, axis=0)

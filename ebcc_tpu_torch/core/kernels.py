@@ -4,11 +4,11 @@ Counterpart of ``ebcc_tpu/core/kernels.py`` (``_coarse_fine_search``
 :63-131, ``encode_batch``/``_encode_core`` :139-158 and :195-845 in their
 batched formulation, with relative targets, the fused curve sweep and
 ``return_internal``, ``encode_batch_temporal`` :853-1121,
-``encode_batch_rate_only`` :1126-1173, ``encode_batch_u16`` :166-193,
-``decode_batch_sparse`` :1181-1214, the other upload forms of the exchange
-:1217-1497, ``temporal_accumulate`` :1501-1520 and ``_decode_from_qflat``
-:1523-1544).  Every step keeps the reference's arithmetic and decisions;
-what changes is the idiom:
+``encode_batch_rate_only`` :1126-1173, ``decode_batch_sparse`` :1181-1214
+(the index upload), the blocked-Rice upload's ``rice_unpack_qflat`` and
+``decode_from_qflat_program`` :1419-1497, ``temporal_accumulate``
+:1501-1520 and ``_decode_from_qflat`` :1523-1544).  Every step keeps the
+reference's arithmetic and decisions; what changes is the idiom:
 
   * PyTorch runs eagerly, so there is no ``jit``: each ``lax.map`` over
     candidate cuts is a Python loop of kernel launches, and each
@@ -25,9 +25,9 @@ what changes is the idiom:
   * The blocked-Rice upload's ``lax.scan`` over 128 steps and its scatter
     are one hand-written kernel on the card (X1,
     ``ops.exchange_hopper.rice_unpack_qflat``).
-  * The fused uploads' int32 and float32 sections are views of the uint8
-    buffer (a copy where a section does not start on its element size),
-    in place of ``lax.bitcast_convert_type``.
+  * The blocked-Rice upload's int32 and float32 sections are views of its
+    uint8 buffer (a copy where a section does not start on its element
+    size), in place of ``lax.bitcast_convert_type``.
 
 Every encode program returns, beside its small outputs, ``vals_comb`` (the
 flat signed kept values of its layers), ``sig_comb`` (their packed
@@ -131,32 +131,9 @@ def encode_batch(x, error_target: float, base_quantile_target: float, *,
     runs each coarse cut sweep as one K3 pass instead of one K2 evaluation
     per cut."""
     minval, maxval = metrics.minmax(x)
-    return _encode_core(x, minval, maxval, 0.0, error_target,
+    return _encode_core(x, minval, maxval, error_target,
                         base_quantile_target, base_levels=base_levels,
                         res_levels=res_levels, relative_mode=relative_mode,
-                        use_centered=use_centered)
-
-
-def encode_batch_u16(xq, minval, maxval, error_target: float,
-                     base_quantile_target: float, *, base_levels: int = 5,
-                     res_levels: int = 3, relative_mode: bool = False,
-                     use_centered: bool = True):
-    """Encode from a host-prequantized batch (reference ``encode_batch_u16``,
-    half the upload bytes of float32; ``EBCC_U16_UPLOAD``).  ``xq``: (B,
-    D0, H, W) round((x - min) / rng * 65535) as uint16 values in an int16
-    or int32 tensor; ``minval``, ``maxval``: (B,) float32 true per-chunk
-    range from the host.  The u16 grid adds at most ``rng / (2 *
-    BASE_SCALE)`` of error against the true data, so that slack comes off
-    the device target and the shipped bound against the original floats
-    stays exact.  Callers enable it only when the target comfortably
-    exceeds the slack (``codec._u16_upload_ok``)."""
-    rngv = torch.where(minval == maxval, 1.0, maxval - minval)
-    xf = (xq.to(torch.int32) & 0xFFFF).to(torch.float32)
-    x = xf * _b4(rngv / BASE_SCALE) + _b4(minval)
-    return _encode_core(x, minval, maxval, rngv / (2.0 * BASE_SCALE),
-                        error_target, base_quantile_target,
-                        base_levels=base_levels, res_levels=res_levels,
-                        relative_mode=relative_mode,
                         use_centered=use_centered)
 
 
@@ -170,13 +147,11 @@ def _exchange_outputs(layers) -> dict:
             "exchange_nnz": (vals_comb != 0).sum().to(torch.int32)}
 
 
-def _encode_core(x, minval, maxval, target_slack, error_target,
-                 base_quantile_target, *, base_levels, res_levels,
-                 relative_mode, use_centered, return_internal: bool = False):
+def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
+                 base_levels, res_levels, relative_mode, use_centered,
+                 return_internal: bool = False):
     """``error_target``: a scalar, or a (B,) tensor of absolute per-chunk
-    targets (the temporal encode's frame 0).  ``target_slack`` (0.0, or a
-    (B,) tensor) comes off the target before the decoder allowance
-    (reference :195-230; the u16 upload's quantization error).  ``return_internal`` (reference
+    targets (the temporal encode's frame 0).  ``return_internal`` (reference
     :781-827) returns, in place of ``vals_comb``, the kept values ``_vb``
     and ``_vr`` and ``_recon``, the reconstruction a decoder will make of
     the candidate the device picks (skip-residual: base at base_cut;
@@ -198,7 +173,7 @@ def _encode_core(x, minval, maxval, target_slack, error_target,
                   else torch.full_like(minval, error_target))
     # Feasibility is verified at target minus the decoder allowance, unless
     # that would eat more than half the target (reference :217-220).
-    base_t = torch.clamp(target - target_slack, min=0.0)
+    base_t = torch.clamp(target, min=0.0)
     eps_d = DECODER_EPS_REL * (maxval - minval)
     target = torch.where(base_t - eps_d >= 0.5 * target, base_t - eps_d,
                          base_t)
@@ -577,7 +552,7 @@ def encode_batch_temporal(x, error_target: float,
     x0 = x[:, :1]
     min0, max0 = metrics.minmax(x0)
     out0 = _encode_core(
-        x0, min0, max0, 0.0, target, base_quantile_target,
+        x0, min0, max0, target, base_quantile_target,
         base_levels=base_levels, res_levels=res_levels, relative_mode=False,
         use_centered=False, return_internal=True)
     recon = out0.pop("_recon")
@@ -728,126 +703,6 @@ def _bitcast(seg, dtype):
     if seg.storage_offset() % size:
         seg = seg.clone()
     return seg.view(dtype)
-
-
-def _u16le(seg):
-    """Little-endian uint16 values of a uint8 tensor, as int64."""
-    seg = seg.to(torch.int64)
-    return seg[0::2] | (seg[1::2] << 8)
-
-
-def _scatter_qflat(idx, vals, s: int):
-    """The dense (2 * s,) int32 coefficient vector with ``vals`` at the
-    valid (non-negative) positions of ``idx``."""
-    qflat = torch.zeros(2 * s, dtype=torch.int32, device=vals.device)
-    keep = (idx >= 0) & (idx < 2 * s)
-    qflat[idx[keep]] = vals[keep].to(torch.int32)
-    return qflat
-
-
-def decode_batch_sparse_bitmap(bitmap, vals, base_cut, res_cut, minval,
-                               maxval, rmin, rmax, *, base_levels: int = 5,
-                               res_levels: int = 3, out_hw=(721, 1440),
-                               has_residual: bool = True,
-                               grid_shape=(1, 1, 736, 1440)):
-    """Decode from a packed significance bitmap over the whole (2, B, D0,
-    Hp, Wp) coefficient space (base layer first) and the values in bitmap
-    order (reference ``decode_batch_sparse_bitmap``): each value's place
-    from one cumsum."""
-    s = int(np.prod(grid_shape))
-    sig = transfer.unpack_bitmap(bitmap, n=2 * s)
-    dest = torch.cumsum(sig.to(torch.int64), 0) - 1
-    cap = vals.shape[0]
-    qflat = torch.where(
-        sig, vals.to(torch.int32)[torch.clamp(dest, 0, cap - 1)], 0)
-    return _decode_from_qflat(
-        qflat, base_cut, res_cut, minval, maxval, rmin, rmax,
-        base_levels=base_levels, res_levels=res_levels, out_hw=out_hw,
-        has_residual=has_residual, grid_shape=grid_shape)
-
-
-def decode_batch_sparse_bytes(bytes_u8, ints_i32, floats_f32, *, cap: int,
-                              gcap: int, vcap: int, wcap: int,
-                              base_levels: int = 5, res_levels: int = 3,
-                              out_hw=(721, 1440), has_residual: bool = True,
-                              grid_shape=(1, 1, 736, 1440)):
-    """Decode from byte-coded gaps and zigzag values with escape side
-    arrays (``transfer.byte_pack_sparse_host``; reference
-    ``decode_batch_sparse_bytes``), in three buffers: bytes_u8 (2*cap +
-    2*vcap,) = [gaps | values | u16 value escapes LE]; ints_i32 = [gap
-    escapes (gcap) | nested value escapes (wcap) | base_cut | res_cut |
-    nnz]; floats_f32 (4, B) = [minval, maxval, rmin, rmax]."""
-    s = int(np.prod(grid_shape))
-    b = grid_shape[0]
-    g8 = bytes_u8[:cap]
-    v8 = bytes_u8[cap:2 * cap]
-    v_ov16 = _u16le(bytes_u8[2 * cap:])
-    g_ov = ints_i32[:gcap]
-    v_ov32 = ints_i32[gcap:gcap + wcap]
-    o = gcap + wcap
-    idx, vals = transfer.byte_unpack_sparse(g8, g_ov, v8, v_ov16, v_ov32,
-                                            ints_i32[o + 2 * b])
-    return _decode_from_qflat(
-        _scatter_qflat(idx, vals, s), ints_i32[o:o + b],
-        ints_i32[o + b:o + 2 * b], *floats_f32,
-        base_levels=base_levels, res_levels=res_levels, out_hw=out_hw,
-        has_residual=has_residual, grid_shape=grid_shape)
-
-
-def decode_batch_sparse_nibble(bytes_u8, ints_i32, floats_f32, *, cap: int,
-                               base_levels: int = 5, res_levels: int = 3,
-                               out_hw=(721, 1440), has_residual: bool = True,
-                               grid_shape=(1, 1, 736, 1440)):
-    """Decode from nibble-tiered gaps and zigzag values
-    (``transfer.nibble_pack_sparse_host``; reference
-    ``decode_batch_sparse_nibble``).  bytes_u8 = [gap nibbles ((cap+1)//2)
-    | value nibbles | gap u8 tier | value u8 tier | gap u16 tier LE | value
-    u16 tier LE] at the capacities of ``transfer.nib_tier_caps``; ints_i32 =
-    [gap i32 tier | value i32 tier | base_cut | res_cut | nnz]."""
-    s = int(np.prod(grid_shape))
-    b = grid_shape[0]
-    nb2 = (cap + 1) // 2
-    g8c, g16c, g32c = transfer.nib_tier_caps(cap, "gap")
-    v8c, v16c, v32c = transfer.nib_tier_caps(cap, "val")
-    o = 0
-    parts = []
-    for n in (nb2, nb2, g8c, v8c, 2 * g16c, 2 * v16c):
-        parts.append(bytes_u8[o:o + n])
-        o += n
-    gn, vn, g8, v8, g16, v16 = parts
-    o = g32c + v32c
-    idx, vals = transfer.nibble_unpack_sparse(
-        (gn, g8, _u16le(g16), ints_i32[:g32c]),
-        (vn, v8, _u16le(v16), ints_i32[g32c:o]), ints_i32[o + 2 * b])
-    return _decode_from_qflat(
-        _scatter_qflat(idx, vals, s), ints_i32[o:o + b],
-        ints_i32[o + b:o + 2 * b], *floats_f32,
-        base_levels=base_levels, res_levels=res_levels, out_hw=out_hw,
-        has_residual=has_residual, grid_shape=grid_shape)
-
-
-def decode_batch_sparse_nibble_fused(buf_u8, *, cap: int,
-                                     base_levels: int = 5,
-                                     res_levels: int = 3, out_hw=(721, 1440),
-                                     has_residual: bool = True,
-                                     grid_shape=(1, 1, 736, 1440)):
-    """:func:`decode_batch_sparse_nibble` from one uint8 upload, [tier
-    bytes | ints LE | floats LE] (reference
-    ``decode_batch_sparse_nibble_fused``)."""
-    b = grid_shape[0]
-    nb2 = (cap + 1) // 2
-    g8c, g16c, g32c = transfer.nib_tier_caps(cap, "gap")
-    v8c, v16c, v32c = transfer.nib_tier_caps(cap, "val")
-    n_bytes = 2 * nb2 + g8c + v8c + 2 * (g16c + v16c)
-    n_ints = g32c + v32c + 2 * b + 1
-    ints_i32 = _bitcast(buf_u8[n_bytes:n_bytes + 4 * n_ints], torch.int32)
-    o = n_bytes + 4 * n_ints
-    floats_f32 = _bitcast(buf_u8[o:o + 16 * b],
-                          torch.float32).reshape(4, b)
-    return decode_batch_sparse_nibble(
-        buf_u8[:n_bytes], ints_i32, floats_f32, cap=cap,
-        base_levels=base_levels, res_levels=res_levels, out_hw=out_hw,
-        has_residual=has_residual, grid_shape=grid_shape)
 
 
 def rice_unpack_qflat(buf_u8, *, n_blocks: int, n_words: int,

@@ -22,8 +22,11 @@ the form it takes.
     independent bit regions (``native.rice_block_pack`` /
     :func:`rice_block_pack_host`) and the device decodes every block as a
     parallel lane (:func:`rice_block_unpack`; on the card the X1 kernel of
-    ``ops.exchange_hopper``).  Nibble tiers, bytes, a bitmap and the index
-    vector remain as the fallbacks.
+    ``ops.exchange_hopper``).
+
+  above ``COMPACT_CAP_LIMIT`` pairs, both directions move the int32
+  positions and the values as they are (the index form, in
+  ``core/codec.py``).
 
 Word buffers are uint32 in the reference.  Here they are int32 tensors
 holding the same bit patterns (``.view(np.uint32)`` on the host gives the
@@ -212,13 +215,6 @@ def bucket_count(n: int) -> int:
         cap *= 2
 
 
-def gather_values(flat_values, idx, *, cap: int, as_int16: bool):
-    """Compact ``flat_values`` (int32) at ``idx`` ((cap,), padded with 0)
-    into a (cap,) vector, optionally narrowed to int16."""
-    v = flat_values[idx.long()]
-    return v.to(torch.int16) if as_int16 else v
-
-
 def pack_bitmap(bits):
     """Boolean (..., N) with N % 8 == 0 -> packed uint8, MSB first."""
     n = bits.shape[-1]
@@ -226,27 +222,6 @@ def pack_bitmap(bits):
     weights = 1 << torch.arange(7, -1, -1, dtype=torch.int32,
                                 device=bits.device)
     return (b * weights).sum(dim=-1).to(torch.uint8)
-
-
-def unpack_bitmap(packed, *, n: int):
-    """Inverse of :func:`pack_bitmap`: packed uint8 (N//8,) -> bool (n,)
-    in MSB-first order."""
-    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
-    bits = (packed[:, None] >> shifts) & 1
-    return bits.reshape(-1)[:n] != 0
-
-
-def host_bitmap_positions(bitmap_bytes: np.ndarray) -> np.ndarray:
-    """Host-side: packed uint8 bitmap -> int32 indices of set bits (in
-    MSB-first order, matching :func:`pack_bitmap`): the nonzero bytes
-    first, then their bits."""
-    flat = bitmap_bytes.reshape(-1)
-    nzb = np.flatnonzero(flat)
-    if nzb.size == 0:
-        return np.zeros(0, np.int32)
-    bits = np.unpackbits(flat[nzb]).reshape(-1, 8).astype(bool)
-    base = (nzb.astype(np.int64) * 8)[:, None] + np.arange(8)
-    return base[bits].astype(np.int32)
 
 
 def pad_index(idx: np.ndarray, cap: int, fill: int) -> np.ndarray:
@@ -554,162 +529,6 @@ def split_rice_pair(head: np.ndarray, nnz: int):
     return stream_a, stream_b
 
 
-# ---------------------------------------------------------------------------
-# Byte-granular decode-direction upload (host packs, device unpacks)
-# ---------------------------------------------------------------------------
-#
-# Gap and zigzag-value byte coding, ~2 B per significant coefficient: each
-# leg is one uint8 per coefficient with a 255 escape marker into small side
-# arrays.  The device recovers positions with one cumsum and values with
-# one gather.
-
-BYTE_ESC = 255
-
-
-def overflow_bucket(n: int) -> int:
-    """Pad ladder for the escape side arrays: powers of 4 from 64."""
-    cap = 64
-    while cap < n:
-        cap *= 4
-    return cap
-
-
-def byte_pack_sparse_host(idx: np.ndarray, vals: np.ndarray):
-    """Host-side: sorted positions + signed values -> (gaps_u8, gap_ov,
-    zvals_u8, val_ov16, val_ov32).
-
-    Gap escapes (255) land in an int32 side array.  Value escapes land in a
-    uint16 side array; its sentinel 65535 nests into an int32 side array
-    for the rare giants."""
-    gaps = np.diff(idx.astype(np.int64), prepend=-1) - 1
-    gof = gaps >= BYTE_ESC
-    g8 = np.where(gof, BYTE_ESC, gaps).astype(np.uint8)
-    g_ov = gaps[gof].astype(np.int32)
-    v = vals.astype(np.int32)
-    z = ((v.astype(np.int64) << 1) ^ (v >> 31)).astype(np.uint32)
-    vof = z >= BYTE_ESC
-    v8 = np.where(vof, BYTE_ESC, z).astype(np.uint8)
-    zo = z[vof]
-    nested = zo >= 0xFFFF
-    v_ov16 = np.where(nested, 0xFFFF, zo).astype(np.uint16)
-    v_ov32 = zo[nested].astype(np.int32)
-    return g8, g_ov, v8, v_ov16, v_ov32
-
-
-def _rank_take(side, flags):
-    """side[rank of each flagged element among the flagged], as int64
-    (rank clipped into the side array, as the reference's take)."""
-    r = torch.cumsum(flags.to(torch.int64), 0) - 1
-    return side.to(torch.int64)[torch.clamp(r, 0, side.shape[0] - 1)]
-
-
-def _unzigzag(z):
-    """int64 tensor of uint32 zigzag codes (or their int32 bits) -> int32
-    signed values."""
-    z = z & _M32
-    return ((z >> 1) ^ -(z & 1)).to(torch.int32)
-
-
-def _positions(g, valid):
-    """Positions from gaps: cumsum of (gap + 1) - 1; padding -1."""
-    idx = torch.cumsum(torch.where(valid, g + 1, 0), 0) - 1
-    return torch.where(valid, idx, -1)
-
-
-def byte_unpack_sparse(g8, g_ov, v8, v_ov16, v_ov32, nnz):
-    """Device-side inverse of :func:`byte_pack_sparse_host` -> (idx int64,
-    vals int32); idx padding is -1."""
-    cap = g8.shape[0]
-    valid = torch.arange(cap, device=g8.device) < nnz
-    gof = (g8 == BYTE_ESC) & valid
-    g = torch.where(gof, _rank_take(g_ov, gof), g8.to(torch.int64))
-    idx = _positions(g, valid)
-
-    vof = (v8 == BYTE_ESC) & valid
-    z16 = _rank_take(v_ov16, vof) & 0xFFFF
-    nested = vof & (z16 == 0xFFFF)
-    z = torch.where(nested, _rank_take(v_ov32, nested),
-                    torch.where(vof, z16, v8.to(torch.int64)))
-    return idx, _unzigzag(z)
-
-
-# --- Nibble-tiered upload -------------------------------------------------
-#
-# ~95% of gaps and ~84% of zigzag values fit 4 bits (ERA5 exchanges, the
-# reference's measurement): a packed nibble stream escaping (sentinel 15)
-# to a u8 tier, then (255) to a u16 tier, then (65535) to int32.  Every
-# tier's capacity is a fixed function of ``cap``; a batch whose escapes
-# exceed them takes the byte path (:func:`nibble_fits`).
-
-NIB_ESC = 15
-
-
-def nib_tier_caps(cap: int, leg: str):
-    """(u8, u16, i32) tier capacities derived from the main cap (fixed
-    fractions per leg: ~5% of gaps and ~17% of values escape the nibble
-    tier on ERA5 exchanges)."""
-    if leg == "gap":
-        return cap // 8 + 4, cap // 64 + 4, cap // 256 + 16
-    return cap // 4 + 4, cap // 24 + 4, cap // 256 + 16
-
-
-def _tier_split(x: np.ndarray):
-    nib = np.where(x >= NIB_ESC, NIB_ESC, x).astype(np.uint8)
-    e1 = x[x >= NIB_ESC]
-    b8 = np.where(e1 >= 0xFF, 0xFF, e1).astype(np.uint8)
-    e2 = e1[e1 >= 0xFF]
-    b16 = np.where(e2 >= 0xFFFF, 0xFFFF, e2).astype(np.uint16)
-    b32 = e2[e2 >= 0xFFFF].astype(np.int64).astype(np.uint32).astype(
-        np.int32)
-    return nib, b8, b16, b32
-
-
-def nibble_pack_sparse_host(idx: np.ndarray, vals: np.ndarray):
-    """Host-side: sorted positions + signed values -> per-leg tier arrays
-    ((gap_nib, gap8, gap16, gap32), (val_nib, val8, val16, val32))."""
-    gaps = np.diff(idx.astype(np.int64), prepend=-1) - 1
-    v = vals.astype(np.int32)
-    z = ((v.astype(np.int64) << 1) ^ (v >> 31))
-    return _tier_split(gaps), _tier_split(z)
-
-
-def nibble_fits(tiers, cap: int, leg: str) -> bool:
-    c8, c16, c32 = nib_tier_caps(cap, leg)
-    _, b8, b16, b32 = tiers
-    return b8.size <= c8 and b16.size <= c16 and b32.size <= c32
-
-
-def pack_nibbles(nib: np.ndarray, cap: int) -> np.ndarray:
-    """(n,) uint8 nibbles -> ((cap+1)//2,) packed bytes (low nibble first)."""
-    out = np.zeros(2 * ((cap + 1) // 2), np.uint8)
-    out[: nib.size] = nib
-    return (out[0::2] | (out[1::2] << 4)).astype(np.uint8)
-
-
-def _untier(nibs_packed, s8, s16, s32, valid):
-    i = torch.arange(valid.shape[0], device=valid.device)
-    byte = nibs_packed.to(torch.int64)[i >> 1]
-    nib = torch.where((i & 1) == 1, byte >> 4, byte & 0xF)
-    e1 = (nib == NIB_ESC) & valid
-    v8 = _rank_take(s8, e1)
-    e2 = e1 & (v8 == 0xFF)
-    v16 = _rank_take(s16, e2) & 0xFFFF
-    e3 = e2 & (v16 == 0xFFFF)
-    v32 = _rank_take(s32, e3)
-    return torch.where(e3, v32, torch.where(e2, v16, torch.where(e1, v8,
-                                                                 nib)))
-
-
-def nibble_unpack_sparse(gap_tiers, val_tiers, nnz):
-    """Device-side inverse of :func:`nibble_pack_sparse_host` -> (idx
-    int64, vals int32); idx padding -1.  ``*_tiers`` = (nibs_packed, s8,
-    s16, s32) tensors (s16 may hold the u16 values as int16 bits)."""
-    cap = 2 * gap_tiers[0].shape[0]
-    valid = torch.arange(cap, device=gap_tiers[0].device) < nnz
-    idx = _positions(_untier(*gap_tiers, valid), valid)
-    return idx, _unzigzag(_untier(*val_tiers, valid))
-
-
 # --- Blocked-Rice upload ----------------------------------------------------
 #
 # Rice coding the (gap, zigzag value) pair reaches ~1.0 B per coefficient,
@@ -755,7 +574,8 @@ def rice_block_pack_host(idx: np.ndarray, vals: np.ndarray,
     per-lane bit offsets are not shipped: the device derives them by cumsum
     of the per-block bit lengths (u16: 128 codes x 52 bits max = 6656 <
     2^16), the value region right after the gap region.  ``k_packed``
-    holds both parameters per block (gap k low nibble, value k high);
+    holds both parameters per block (gap k in the low four bits, value k
+    in the high four);
     ``base_pos`` (nb,) is the position preceding each gap block (-1 for
     block 0)."""
     n = int(idx.size)
@@ -828,6 +648,13 @@ def rice_lane_offsets(lens_g, lens_v):
     X1 computes them inside its library (``ops.exchange_hopper``)."""
     lens = torch.cat([lens_g, lens_v]).to(torch.int64) & 0xFFFF
     return torch.cumsum(lens, 0) - lens
+
+
+def _unzigzag(z):
+    """int64 tensor of uint32 zigzag codes (or their int32 bits) -> int32
+    signed values."""
+    z = z & _M32
+    return ((z >> 1) ^ -(z & 1)).to(torch.int32)
 
 
 def rice_block_unpack(words, lens_g, lens_v, k_packed, base_pos, nnz,

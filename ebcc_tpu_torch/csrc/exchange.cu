@@ -458,7 +458,7 @@ long long ebcc_exchange_kernels_launched() {
 
 // Decode nb blocked-Rice lane pairs into qflat (n_out int32, cleared here).
 // words: nw uint32 (nw >= 3); lens_g, lens_v: nb u16 lane bit lengths;
-// k_packed: nb bytes (gap k low nibble, value k high); base_pos: nb int32
+// k_packed: nb bytes (gap k low 4 bits, value k high 4); base_pos: nb int32
 // positions preceding each gap block; nnz: one int32 on the device;
 // chunk_off: scratch of 2 * ceil(nb / 32) + 1 int64.
 int ebcc_rice_unpack_qflat(const uint32_t* words, long long nw,

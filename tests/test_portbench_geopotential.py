@@ -188,7 +188,7 @@ def test_no_rice_takes_the_index_fallback_for_every_pair(spans_on,
     dep = small_deployment()
     x = slab(SEED, dep).numpy()
     blob, batches, _ = _encode_counting(x, dep.codec, monkeypatch)
-    monkeypatch.setenv("EBCC_NO_RICE", "1")
+    monkeypatch.setattr(codec, "_rice_enabled", lambda: False)
     plain, _, counters = _encode_counting(x, dep.codec, monkeypatch)
     assert plain == blob
     assert counters == {"exch: index pairs": [2, sum(n for _, n in batches)]}
@@ -206,7 +206,7 @@ def test_one_slice_and_two_give_the_same_bytes(spans_on, monkeypatch):
                                            else [37])
         waits[max_batch] = timing.STATS.get("enc: wait worker", [0])[0]
     assert blobs[32] == blobs[37]
-    assert waits[32] >= 2 and waits[37] == 0
+    assert waits[32] == 3 and waits[37] == 0
 
 
 def test_spans_off_count_nothing(env_restored, monkeypatch):

@@ -21,6 +21,10 @@ READS = {"enc_device_thread_s_per_mpt": ("enc: device",),
          "assemble_zstd_s_per_mpt": ("assemble+zstd",),
          "dec_parse_s_per_mpt": ("dec: entropy decode",
                                  "dec: unpack planes")}
+# Metrics whose spans do not open in a cell: the read cell decodes each
+# request in one batch, on the request thread, so it waits for no worker
+# and the metric reads 0.0.
+READ_ZERO = {("max0.5_cr30.read8", "dec_worker_wait_s_per_mpt")}
 
 
 def spans_read(name: str) -> tuple:
@@ -74,6 +78,10 @@ def test_traced_cell_reports_every_program_metric(cell, traced_cell):
     stats = traced_cell[0].stats
     for name in listed:
         spans = spans_read(name)
+        if (cell, name) in READ_ZERO:
+            assert not any(stats.get(s, (0,))[0] for s in spans), name
+            assert r["metrics"][name]["value"] == 0.0, name
+            continue
         if spans:
             assert any(stats.get(s, (0,))[0] >= 1 for s in spans), \
                 (name, spans)

@@ -160,19 +160,6 @@ def test_truncated_stream_raises(streams):
             et.decode(bad, device="cpu")
 
 
-@pytest.mark.parametrize("change", [dict(u16_upload=True)],
-                         ids=["u16_upload"])
-def test_modes_not_ported_raise(change):
-    """The encode option the port once lacked, the u16 upload, now runs:
-    the stream decodes within the bound of the float input (the name is
-    kept from when it raised)."""
-    x = _smooth_frames(n=2, h=64, w=64)
-    _, cfg = _configs(x.shape)
-    opts = et.EncodeOptions(**change)
-    blob = et.encode(x, cfg, opts, device="cpu")
-    assert np.abs(et.decode(blob, device="cpu") - x).max() <= ERROR
-
-
 @pytest.mark.parametrize("change", [
     dict(temporal=True, entropy_backend="cab"),
     dict(residual_mode=ebcc_tpu.RESIDUAL_NONE, entropy_backend="cab"),

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 
 import ebcc_tpu_torch as et
-from ebcc_tpu_torch.core import transfer
+from ebcc_tpu_torch.core import codec, transfer
 from ebcc_tpu_torch.utils import profiling, timing
 
 PACKAGE = pathlib.Path(et.__file__).parent
@@ -228,6 +228,97 @@ def test_spans_off_record_nothing_and_wait_for_nothing(monkeypatch):
             assert timing.submit(pool, timing.current).result() is None
 
 
+def test_submit_ahead_keeps_order_and_depth(spans_on):
+    """Results come back in item order; with a depth, at most that many
+    calls are in flight, the next item starts only after the oldest result
+    was waited for, and each wait opens its own span; without one, every
+    item starts at once and the waits share one span."""
+    lock = threading.Lock()
+    state = {"running": 0, "most": 0, "started": []}
+
+    def fn(i):
+        with lock:
+            state["running"] += 1
+            state["most"] = max(state["most"], state["running"])
+            state["started"].append(i)
+        time.sleep(0.002 * (i % 3))
+        with lock:
+            state["running"] -= 1
+        return i * i
+
+    got = []
+    for k, out in enumerate(codec._submit_ahead(fn, list(range(8)), 3,
+                                                codec._enc_wait)):
+        with lock:
+            assert max(state["started"]) <= k + 3
+        got.append(out)
+    assert got == [i * i for i in range(8)]
+    assert state["most"] <= 3
+    assert timing.STATS["enc: wait worker"][0] == 8
+    got = list(codec._submit_ahead(fn, iter(range(8)), None,
+                                   codec._dec_wait, workers=2))
+    assert got == [i * i for i in range(8)]
+    assert timing.STATS["dec: wait worker"][0] == 1
+
+
+def test_submit_ahead_runs_one_item_on_the_caller(spans_on):
+    got = list(codec._submit_ahead(lambda i: threading.get_native_id(),
+                                   [0], 2, codec._dec_wait))
+    assert got == [threading.get_native_id()]
+    assert "dec: wait worker" not in timing.STATS
+
+
+def test_submit_ahead_raises_a_failed_call():
+    def fn(i):
+        if i == 2:
+            raise ValueError("item 2")
+        return i
+
+    gen = codec._submit_ahead(fn, list(range(5)), 2, codec._enc_wait)
+    assert [next(gen), next(gen)] == [0, 1]
+    with pytest.raises(ValueError, match="item 2"):
+        next(gen)
+
+
+def test_host_pool_map_caps_its_workers():
+    """Results in item order on at most ``workers`` threads; one item, or a
+    cap of one, on the caller's thread."""
+    lock = threading.Lock()
+    state = {"running": 0, "most": 0, "threads": set()}
+
+    def fn(i):
+        with lock:
+            state["running"] += 1
+            state["most"] = max(state["most"], state["running"])
+            state["threads"].add(threading.get_native_id())
+        time.sleep(0.002)
+        with lock:
+            state["running"] -= 1
+        return -i
+
+    assert codec._host_pool_map(fn, range(9), 2) == [-i for i in range(9)]
+    assert state["most"] <= 2 and len(state["threads"]) <= 2
+    for items, workers in ((range(1), None), (range(4), 1)):
+        state["threads"].clear()
+        assert codec._host_pool_map(fn, items, workers) == [-i for i in items]
+        assert state["threads"] == {threading.get_native_id()}
+
+
+def test_one_batch_decode_parses_on_the_request_thread(spans_on):
+    """A container decoded in one batch opens no ``dec: wait worker``: its
+    parse runs on the request thread; two batches keep the worker."""
+    x = frames()
+    blob = et.encode_chunked(x, config(x), device="cpu")
+    for max_batch, waits in ((32, 0), (2, 2)):
+        timing.reset_stats()
+        with timing.recording() as recs:
+            et.decode_chunked(blob, max_batch=max_batch, device="cpu")
+        root = next(r for r in recs if r[0] == "request: decode_chunked")
+        parse = {r[3] for r in recs if r[0] == "dec: entropy decode"}
+        assert timing.STATS.get("dec: wait worker", [0])[0] == waits
+        assert (parse == {root[3]}) == (waits == 0)
+
+
 def test_spans_on_wait_before_every_copy(spans_on, monkeypatch):
     waits = []
     real = transfer._device_wait
@@ -262,17 +353,19 @@ def test_gather_copy_opens_only_on_the_copy_path(spans_on, chunk, copied):
     assert all(r[2] in gathers for r in copies)
 
 
-@pytest.mark.parametrize("env", [
-    {}, {"EBCC_NO_RICE": "1"}, {"EBCC_NO_RICE_UPLOAD": "1"},
-    {"EBCC_NO_RICE_UPLOAD": "1", "EBCC_NO_NIBBLE_UPLOAD": "1"},
-    {"EBCC_NO_BYTE_UPLOAD": "1"}, {"EBCC_U16_UPLOAD": "1"},
-    {"EBCC_LINK_STREAMS": "1"}],
-    ids=["default", "no_rice", "nibble", "bytes", "bitmap_or_index",
-         "u16", "one_stream"])
-def test_every_counted_byte_moves_inside_a_link_span(env, spans_on,
+@pytest.mark.parametrize("case", ["default", "no_rice", "above_cap",
+                                  "one_stream"])
+def test_every_counted_byte_moves_inside_a_link_span(case, spans_on,
                                                      monkeypatch):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
+    """Every exchange form: the compact Rice forms, the index form without
+    the host library and above the compaction cap (both directions), and
+    one link stream in place of sliced copies."""
+    if case == "no_rice":
+        monkeypatch.setattr(codec, "_rice_enabled", lambda: False)
+    elif case == "above_cap":
+        monkeypatch.setattr(transfer, "COMPACT_CAP_LIMIT", 0)
+    elif case == "one_stream":
+        monkeypatch.setenv("EBCC_LINK_STREAMS", "1")
     counted = {"up": [], "down": []}
     for way in counted:
         real = getattr(transfer, f"count_{way}")

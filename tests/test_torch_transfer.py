@@ -7,15 +7,14 @@ pairs, on the same seeded inputs (n in {0, 1, 127, 128, 129, 5000}, at a
 small scale and at one that forces every escape).  The port's native Rice
 coders invert its device packers.  Through the codec: streams are
 byte-identical across the encode forms and decodes bit-equal across the
-five upload forms in MAX_ERROR, rate and temporal mode, with
-``LINK_STATS`` showing the Rice forms moving fewer bytes; the u16 upload
-against the JAX package's; the routing decisions against the JAX
-package's.  The JAX package's encode runs once (the u16 stream).  X1's
-chunked lane offsets equal the JAX package's.  Cases marked ``cuda`` hold
-the X1 kernels against their plain version on the card.
+two upload forms (blocked Rice, index) in MAX_ERROR, rate and temporal
+mode, with ``LINK_STATS`` showing the Rice forms moving fewer bytes, and a
+decode above the compaction cap taking the index form; the routing
+decisions against the JAX package's.  X1's chunked lane offsets equal the
+JAX package's.  Cases marked ``cuda`` hold the X1 kernels against their
+plain version on the card.
 """
 
-import dataclasses
 import inspect
 
 import numpy as np
@@ -25,7 +24,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-import ebcc_tpu
 from ebcc_tpu.core import routing as jrouting
 from ebcc_tpu.core import transfer as jt
 
@@ -33,7 +31,6 @@ import ebcc_tpu_torch as et
 from ebcc_tpu_torch import native as tnative
 from ebcc_tpu_torch.core import codec as tcodec
 from ebcc_tpu_torch.core import routing as trouting
-from ebcc_tpu_torch.core import stream as tstream
 from ebcc_tpu_torch.core import transfer as tt
 
 torch.set_num_threads(2)
@@ -56,19 +53,6 @@ def pairs(n, scale, space=1 << 24, seed=0):
     vals = (rng.integers(1, scale + 1, n)
             * rng.choice([-1, 1], n)).astype(np.int32)
     return idx, vals
-
-
-def tiered_pairs(n, scale, seed=0):
-    """n pairs whose gaps and zigzag values mostly fit a nibble, with
-    every 40th, 400th and 1000th reaching the u8, u16 and int32 tiers
-    (values up to ``scale`` there)."""
-    rng = np.random.default_rng([seed, n])
-    gaps = rng.integers(0, 8, n)
-    vals = rng.integers(-7, 8, n)
-    for step, big in ((40, 200), (400, 60000), (1000, scale)):
-        gaps[::step] = big
-        vals[::step] = min(big, scale) // 2
-    return np.cumsum(gaps + 1) - 1, vals.astype(np.int32)
 
 
 def grid_values(n, scale):
@@ -94,12 +78,8 @@ def test_ladders_equal_reference():
     for n in list(range(0, 300)) + list(range(300, 200000, 977)):
         assert tt.bucket_count(n) == jt.bucket_count(n)
         assert tt.rice_block_bucket(n) == jt.rice_block_bucket(n)
-        assert tt.overflow_bucket(n) == jt.overflow_bucket(n)
-        for leg in ("gap", "val"):
-            assert tt.nib_tier_caps(n, leg) == jt.nib_tier_caps(n, leg)
     for name in ("RICE_ESC", "RICE_HEADER_WORDS", "RICE_PAIR_HEADER_WORDS",
-                 "RICE_NUM_CLASSES", "COMPACT_CAP_LIMIT", "RICE_BLOCK",
-                 "NIB_ESC", "BYTE_ESC"):
+                 "RICE_NUM_CLASSES", "COMPACT_CAP_LIMIT", "RICE_BLOCK"):
         assert getattr(tt, name) == getattr(jt, name), name
 
 
@@ -107,23 +87,9 @@ def test_ladders_equal_reference():
 def test_host_packers_equal_reference(n, scale):
     idx, vals = pairs(n, SCALES[scale])
     cap = jt.bucket_count(max(n, 1))
-    for a, b in zip(tt.byte_pack_sparse_host(idx, vals),
-                    jt.byte_pack_sparse_host(idx, vals)):
-        np.testing.assert_array_equal(a, b)
-    got, want = (tt.nibble_pack_sparse_host(idx, vals),
-                 jt.nibble_pack_sparse_host(idx, vals))
-    for leg, gl, wl in (("gap", got[0], want[0]), ("val", got[1], want[1])):
-        for a, b in zip(gl, wl):
-            np.testing.assert_array_equal(a, b)
-        assert tt.nibble_fits(gl, cap, leg) == jt.nibble_fits(wl, cap, leg)
-        np.testing.assert_array_equal(tt.pack_nibbles(gl[0], cap),
-                                      jt.pack_nibbles(wl[0], cap))
     for a, b in zip(tt.rice_block_pack_host(idx, vals),
                     jt.rice_block_pack_host(idx, vals)):
         np.testing.assert_array_equal(a, b)
-    flat, sig = grid_values(n, SCALES[scale])
-    np.testing.assert_array_equal(tt.host_bitmap_positions(sig),
-                                  jt.host_bitmap_positions(sig))
     pos = idx[idx < int(np.prod(GRID))].astype(np.int32)
     np.testing.assert_array_equal(tt.pad_index(pos, cap, -1),
                                   jt.pad_index(pos, cap, -1))
@@ -138,7 +104,7 @@ def test_host_packers_equal_reference(n, scale):
 def test_device_packers_equal_reference(n, scale):
     """rice_pack, rice_pack_pair (classed and not) and
     compact_rice_exchange (classed and not): words and words_needed word
-    for word; the pack/unpack of the bitmap both ways."""
+    for word; the packed bitmap."""
     _, vals = pairs(n, SCALES[scale])
     cap = CAP
     v = np.zeros(cap, np.int32)
@@ -165,9 +131,6 @@ def test_device_packers_equal_reference(n, scale):
     np.testing.assert_array_equal(
         sig_t.numpy(), np.asarray(jt.pack_bitmap(jnp.asarray(bits))))
     np.testing.assert_array_equal(sig_t.numpy().reshape(-1), sig)
-    np.testing.assert_array_equal(
-        tt.unpack_bitmap(torch.from_numpy(sig), n=flat.size).numpy(),
-        np.asarray(jt.unpack_bitmap(jnp.asarray(sig), n=flat.size)))
     cap2 = CAP
     assert int((flat != 0).sum()) <= cap2
     for hw in (None, GRID[-2:]):
@@ -222,9 +185,9 @@ def _pad(a, n, dtype):
 
 @pytest.mark.parametrize("n,scale", CASES, ids=IDS)
 def test_plain_unpackers_equal_reference(n, scale):
-    """rice_block_unpack (the plain twin of X1), byte_unpack_sparse and
-    nibble_unpack_sparse against the JAX package's, on the padded buffers
-    the codec uploads; each returns the packed pairs."""
+    """rice_block_unpack (the plain twin of X1) against the JAX package's,
+    on the padded buffers the codec uploads: it returns the packed
+    pairs."""
     idx, vals = pairs(n, SCALES[scale])
     w, lg, lv, kp, bp, nb = jt.rice_block_pack_host(idx, vals)
     nbk, nwk = jt.rice_block_bucket(nb), jt.rice_block_bucket(w.size)
@@ -239,39 +202,6 @@ def test_plain_unpackers_equal_reference(n, scale):
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tv.numpy()[:n], np.asarray(jv)[:n])
     np.testing.assert_array_equal(ti.numpy()[:n], idx)
-    np.testing.assert_array_equal(tv.numpy()[:n], vals)
-
-    cap = jt.bucket_count(max(n, 1))
-    g8, g_ov, v8, v16, v32 = jt.byte_pack_sparse_host(idx, vals)
-    up = (_pad(g8, cap, np.uint8),
-          _pad(g_ov, jt.overflow_bucket(max(1, g_ov.size)), np.int32),
-          _pad(v8, cap, np.uint8),
-          _pad(v16, jt.overflow_bucket(max(1, v16.size)), np.uint16),
-          _pad(v32, jt.overflow_bucket(max(1, v32.size)), np.int32))
-    ti, tv = tt.byte_unpack_sparse(*map(t_of, up), n)
-    ji, jv = jax.jit(jt.byte_unpack_sparse)(*map(jnp.asarray, up),
-                                            np.int32(n))
-    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
-    np.testing.assert_array_equal(tv.numpy()[:n], np.asarray(jv)[:n])
-    np.testing.assert_array_equal(tv.numpy()[:n], vals)
-
-    # The nibble tiers take a batch only while its escapes fit their fixed
-    # shares of cap (else the byte form does): pairs that reach every tier.
-    idx, vals = tiered_pairs(n, SCALES[scale])
-    gt, vt = jt.nibble_pack_sparse_host(idx, vals)
-    assert jt.nibble_fits(gt, cap, "gap") and jt.nibble_fits(vt, cap, "val")
-
-    def tiers(t, leg):
-        c8, c16, c32 = jt.nib_tier_caps(cap, leg)
-        return (jt.pack_nibbles(t[0], cap), _pad(t[1], c8, np.uint8),
-                _pad(t[2], c16, np.uint16), _pad(t[3], c32, np.int32))
-
-    g, v = tiers(gt, "gap"), tiers(vt, "val")
-    ti, tv = tt.nibble_unpack_sparse(list(map(t_of, g)), list(map(t_of, v)), n)
-    ji, jv = jax.jit(jt.nibble_unpack_sparse)(
-        list(map(jnp.asarray, g)), list(map(jnp.asarray, v)), np.int32(n))
-    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
-    np.testing.assert_array_equal(tv.numpy()[:n], np.asarray(jv)[:n])
     np.testing.assert_array_equal(tv.numpy()[:n], vals)
 
 
@@ -323,16 +253,16 @@ def mode_streams():
 @pytest.mark.parametrize("mode", list(MODES))
 def test_encode_forms_byte_identical(monkeypatch, mode_streams, mode):
     """The compact Rice fetch, its hinted single-copy form (a second call
-    of the same shape) and the ``torch.nonzero`` fetch
-    (``EBCC_NO_RICE=1``) write the same streams; the Rice forms bring
-    fewer bytes down."""
+    of the same shape) and the ``torch.nonzero`` fetch (the host library
+    taken away) write the same streams; the Rice forms bring fewer bytes
+    down."""
     x, cfg, _ = mode_streams[mode]
     tcodec._EXCH_HINTS.clear()
     enc = lambda: et.encode_frames_device(x, cfg, max_batch=2, device="cpu")
     s_rice, l_rice = link_bytes(enc)
     assert tcodec._EXCH_HINTS                 # the second call is hinted
     s_fused, l_fused = link_bytes(enc)
-    monkeypatch.setenv("EBCC_NO_RICE", "1")
+    monkeypatch.setattr(tcodec, "_rice_enabled", lambda: False)
     s_plain, l_plain = link_bytes(enc)
     assert s_rice == s_fused == s_plain == mode_streams[mode][2]
     assert l_rice["up"] == l_fused["up"] == l_plain["up"] == x.nbytes
@@ -340,92 +270,53 @@ def test_encode_forms_byte_identical(monkeypatch, mode_streams, mode):
     assert l_fused["down"] < l_plain["down"]
 
 
-FORMS = {"rice": ["rice"], "nibble": ["nibble", "bytes"], "bytes": ["bytes"],
-         "bitmap": ["bitmap"], "index": ["index"]}
+def uploads_taken(monkeypatch):
+    """-> the list that each decode upload's form name is appended to."""
+    taken = []
+
+    def spy(form):
+        real = getattr(tcodec, f"_upload_{form}")
+
+        def upload(*a):
+            taken.append(form)
+            return real(*a)
+        monkeypatch.setattr(tcodec, f"_upload_{form}", upload)
+
+    spy("rice")
+    spy("index")
+    return taken
 
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_decode_forms_bit_equal(monkeypatch, mode_streams, mode):
-    """Each upload form of the decode rebuilds the index form's batch bit
-    for bit, within the bound; the Rice form uploads fewer bytes than the
-    index form; the default chain starts with the Rice form."""
+    """The index upload rebuilds the Rice upload's batch bit for bit, within
+    the bound; the Rice form, the one taken below the cap, uploads fewer
+    bytes."""
     x, cfg, streams = mode_streams[mode]
-    assert tcodec._upload_chain(1000, 1 << 20)[0] == "rice"
-    got, up, taken = {}, {}, []
-    real_nibble = tcodec._UPLOADS["nibble"]
-
-    def nibble(*a):
-        out = real_nibble(*a)
-        taken.append(out is not None)
-        return out
-
-    monkeypatch.setitem(tcodec._UPLOADS, "nibble", nibble)
-    for form, chain in FORMS.items():
-        monkeypatch.setattr(tcodec, "_upload_chain",
-                            lambda nnz, s, chain=chain: list(chain))
-        got[form], stats = link_bytes(
-            lambda: et.decode_frames_device(streams, device="cpu"))
-        up[form] = stats["up"]
-    for form, out in got.items():
-        assert torch.equal(out, got["index"]), form
-    assert up["rice"] < up["index"]
-    if mode == "max_error":
-        assert all(taken)                  # the nibble tiers took these
+    taken = uploads_taken(monkeypatch)
+    decode = lambda: et.decode_frames_device(streams, device="cpu")
+    got_rice, l_rice = link_bytes(decode)
+    assert taken == ["rice"]
+    monkeypatch.setattr(tcodec, "_upload_rice", tcodec._upload_index)
+    got_index, l_index = link_bytes(decode)
+    assert torch.equal(got_rice, got_index)
+    assert l_rice["up"] < l_index["up"]
     if cfg.residual_mode != et.RESIDUAL_NONE:
-        err = np.abs(got["rice"].numpy() - x).max()
-        assert err <= cfg.error
+        assert np.abs(got_rice.numpy() - x).max() <= cfg.error
 
 
-# ---------------------------------------------------------------------------
-# The u16 upload
-# ---------------------------------------------------------------------------
-
-U16_SHAPE = (2, 64, 128)
-
-
-@pytest.fixture(scope="module")
-def u16_streams():
-    """(frames, port config, JAX u16 stream, port u16 stream, port float
-    stream, the u16 encode's link bytes).  The module's one JAX encode."""
-    x = smooth_frames(2)
-    ref = ebcc_tpu.CodecConfig(dims=U16_SHAPE, base_cr=30,
-                               residual_mode=ebcc_tpu.RESIDUAL_MAX_ERROR,
-                               error=0.5, zstd_level=3)
-    cfg = et.config_from_reference(dataclasses.asdict(ref))
-    s_jax = ebcc_tpu.encode(x, ref, ebcc_tpu.EncodeOptions(u16_upload=True))
-    s_port, stats = link_bytes(lambda: et.encode(
-        x, cfg, et.EncodeOptions(u16_upload=True), device="cpu"))
-    s_float = et.encode(x, cfg, et.EncodeOptions(), device="cpu")
-    return x, cfg, s_jax, s_port, s_float, stats
-
-
-def test_u16_upload_against_reference(u16_streams):
-    x, cfg, s_jax, s_port, s_float, stats = u16_streams
-    assert stats["up"] == x.size * 2 + 8       # u16 frames + min/max
-    assert s_port != s_float
-    hj, hp = (tstream.split_frame_stream(s)[0] for s in (s_jax, s_port))
-    assert (hj.flags, hj.base_cut, hj.res_cut) == (hp.flags, hp.base_cut,
-                                                  hp.res_cut)
-    assert abs(len(s_port) - len(s_jax)) <= 0.01 * len(s_jax)
-    for s in (s_jax, s_port):
-        for out in (et.decode(s, device="cpu"), ebcc_tpu.decode(s)):
-            assert np.abs(out - x).max() <= cfg.error
-
-
-def test_u16_upload_below_gate_is_the_float_upload():
-    """A target under 32 slacks of the u16 grid keeps the float upload:
-    the same bytes on the link and the same stream."""
-    x = smooth_frames(2)
-    cfg = et.CodecConfig(dims=U16_SHAPE, residual_mode=et.RESIDUAL_MAX_ERROR,
-                         error=0.005, zstd_level=3)
-    rng_ = float(x.max() - x.min())
-    assert not tcodec._u16_upload_ok(np.float32([x.min()]),
-                                     np.float32([x.max()]), cfg)
-    assert 0.005 < 32 * rng_ / (2 * 65535.0)
-    s16, l16 = link_bytes(lambda: et.encode(
-        x, cfg, et.EncodeOptions(u16_upload=True), device="cpu"))
-    s32, l32 = link_bytes(lambda: et.encode(x, cfg, device="cpu"))
-    assert s16 == s32 and l16["up"] == l32["up"] == x.nbytes
+@pytest.mark.parametrize("mode", list(MODES))
+def test_above_cap_decode_takes_the_index_form(monkeypatch, mode_streams,
+                                              mode):
+    """With the compaction cap below a batch's pairs, the decode uploads
+    the index form, and its batch equals the Rice decode's bit for bit."""
+    x, cfg, streams = mode_streams[mode]
+    want = et.decode_frames_device(streams, device="cpu")
+    taken = uploads_taken(monkeypatch)
+    monkeypatch.setattr(tt, "COMPACT_CAP_LIMIT", tt.bucket_count(1) - 1)
+    got = et.decode_frames_device(streams, device="cpu")
+    assert taken == ["index"]
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -461,10 +352,10 @@ def test_new_entry_points_default_to_the_card(monkeypatch):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = smooth_frames(2)
-    cfg = et.CodecConfig(dims=U16_SHAPE, residual_mode=et.RESIDUAL_MAX_ERROR,
-                         error=0.5)
+    cfg = et.CodecConfig(dims=(2, 64, 128),
+                         residual_mode=et.RESIDUAL_MAX_ERROR, error=0.5)
     with pytest.raises(RuntimeError, match="CUDA"):
-        et.encode(x, cfg, et.EncodeOptions(u16_upload=True))
+        et.encode(x, cfg, et.EncodeOptions())
 
 
 # ---------------------------------------------------------------------------
