@@ -13,6 +13,8 @@ reference's arithmetic and decisions; what changes is the idiom:
   * PyTorch runs eagerly, so there is no ``jit``: each ``lax.map`` over
     candidate cuts is a Python loop of kernel launches, and each
     ``lax.cond`` is a host-side branch on one small device-to-host read.
+    On a CUDA tensor the encode core's launches between those branches are
+    captured once into CUDA graphs and replayed (``core/graphs.py``).
   * The transforms go through the hand-written kernels of
     ``ops.dwt_hopper`` on a CUDA tensor (their plain versions on a CPU
     tensor).  Frames never share a kernel block and every other operation
@@ -37,6 +39,8 @@ inputs of the exchange of ``core/transfer.py``.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -44,8 +48,9 @@ import torch
 
 from ..config import (BASE_NUM_PLANES, BASE_REFINE_ITERS, DELTA_NUM_PLANES,
                       RES_NUM_PLANES, RES_REFINE_RATIOS, RES_SCALE_STEPS)
+from ..device import constant
 from ..ops import bitplane, dwt, dwt_hopper, exchange_hopper, metrics
-from . import transfer
+from . import graphs, transfer
 
 BASE_SCALE = 65535.0
 RES_SCALE = 255.0
@@ -84,7 +89,7 @@ def _coarse_fine_search(q, num_planes, levels, metrics_fn, criteria,
     cc = np.arange(num_planes - 1, -1, -step, dtype=np.int32)
     if cc[-1] != 0:
         cc = np.append(cc, np.int32(0))
-    cc_dev = torch.as_tensor(cc, device=dev)
+    cc_dev = constant(cc.tolist(), torch.int32, dev)
 
     def eval_vec(cut_vec):
         spatial = dwt_hopper.idwt2d_dequant(q, cut_vec, levels)
@@ -118,6 +123,32 @@ def _coarse_fine_search(q, num_planes, levels, metrics_fn, criteria,
     return out, coarse, cc
 
 
+@dataclasses.dataclass(frozen=True)
+class _CoreSettings:
+    """What the encode core bakes in beside its batch's shape: the float32
+    values of the targets (``error_target`` may instead be a (B,) tensor
+    of absolute per-chunk targets, the temporal encode's frame 0), the
+    levels, the modes and the ``EBCC_FUSED_CURVE`` reading."""
+    error_target: object
+    bq_target: float
+    base_levels: int
+    res_levels: int
+    relative_mode: bool
+    use_centered: bool
+    use_curve: bool
+    return_internal: bool = False
+
+
+def _settings(error_target, base_quantile_target, *, base_levels, res_levels,
+              relative_mode, use_centered, return_internal=False):
+    if not isinstance(error_target, torch.Tensor):
+        error_target = float(np.float32(error_target))
+    return _CoreSettings(
+        error_target, float(np.float32(base_quantile_target)), base_levels,
+        res_levels, relative_mode, use_centered,
+        os.environ.get("EBCC_FUSED_CURVE", "0") == "1", return_internal)
+
+
 def encode_batch(x, error_target: float, base_quantile_target: float, *,
                  base_levels: int = 5, res_levels: int = 3,
                  relative_mode: bool = False, use_centered: bool = True):
@@ -129,12 +160,55 @@ def encode_batch(x, error_target: float, base_quantile_target: float, *,
 
     ``EBCC_FUSED_CURVE=1`` (read at each call, as the reference reads it)
     runs each coarse cut sweep as one K3 pass instead of one K2 evaluation
-    per cut."""
-    minval, maxval = metrics.minmax(x)
-    return _encode_core(x, minval, maxval, error_target,
-                        base_quantile_target, base_levels=base_levels,
-                        res_levels=res_levels, relative_mode=relative_mode,
-                        use_centered=use_centered)
+    per cut.
+
+    A CUDA tensor's core runs as CUDA graphs captured once per key
+    (:func:`graph_key`) and replayed for every later batch of it
+    (``core/graphs.py``); a CPU tensor's runs eagerly.  The same kernels
+    run in the same order on the same values either way."""
+    c = _settings(error_target, base_quantile_target,
+                  base_levels=base_levels, res_levels=res_levels,
+                  relative_mode=relative_mode, use_centered=use_centered)
+    chain = functools.partial(_encode_chain, c)
+    if x.device.type == "cuda":
+        return graphs.run(graph_key(x, c), x, chain)
+    return chain({"x": x}, _eager)
+
+
+def graph_key(x, c: _CoreSettings) -> tuple:
+    """Everything a captured core bakes in: the device, the batch's shape
+    and dtype, and the settings."""
+    return (x.device, tuple(x.shape), x.dtype, c)
+
+
+def _eager(name, fn, st):
+    return fn(st)
+
+
+def _encode_chain(c: _CoreSettings, st: dict, seg) -> dict:
+    """The encode core as four segments between its two host branches:
+    the head (range, K1, the base search and reconstruction, the residual
+    range), the residual sweep or its trivial form (each with the overflow
+    and refinable flags), the base-scale bisection where a chunk can take
+    it, and the outputs.  ``st`` holds ``x`` (and, from the temporal
+    encode, ``minval`` and ``maxval``); ``seg(name, fn, st)`` runs one
+    segment, ``fn(st)`` -> the dict of its new tensors (eagerly, or as a
+    CUDA graph in ``core/graphs.py``)."""
+    def run(name, fn):
+        st.update(seg(name, functools.partial(fn, c), st))
+
+    run("head", _core_head)
+    # When every chunk's base layer already meets the bound the sweep is
+    # dead work (the reference's lax.cond at :530-532).
+    if bool(st["skip_residual"].all()):
+        run("trivial", _core_trivial)
+    else:
+        run("sweep", _core_sweep)
+    # Host-side branch in place of the reference's lax.cond at :649-651:
+    # with no refinable chunk no candidate could be adopted.
+    if bool(st["refinable"].any()):
+        run("refine", _core_refine)
+    return seg("outputs", functools.partial(_core_outputs, c), st)
 
 
 def _exchange_outputs(layers) -> dict:
@@ -150,27 +224,56 @@ def _exchange_outputs(layers) -> dict:
 def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
                  base_levels, res_levels, relative_mode, use_centered,
                  return_internal: bool = False):
-    """``error_target``: a scalar, or a (B,) tensor of absolute per-chunk
-    targets (the temporal encode's frame 0).  ``return_internal`` (reference
-    :781-827) returns, in place of ``vals_comb``, the kept values ``_vb``
-    and ``_vr`` and ``_recon``, the reconstruction a decoder will make of
-    the candidate the device picks (skip-residual: base at base_cut;
-    residual feasible: base + residual; else pure base at pure_cut), with
-    the decoder's arithmetic."""
+    """The core, eagerly.  ``error_target``: a scalar, or a (B,) tensor of
+    absolute per-chunk targets (the temporal encode's frame 0).
+    ``return_internal`` (reference :781-827) returns, in place of
+    ``vals_comb``, the kept values ``_vb`` and ``_vr`` and ``_recon``, the
+    reconstruction a decoder will make of the candidate the device picks
+    (skip-residual: base at base_cut; residual feasible: base + residual;
+    else pure base at pure_cut), with the decoder's arithmetic."""
+    c = _settings(error_target, base_quantile_target,
+                  base_levels=base_levels, res_levels=res_levels,
+                  relative_mode=relative_mode, use_centered=use_centered,
+                  return_internal=return_internal)
+    return _encode_chain(c, {"x": x, "minval": minval, "maxval": maxval},
+                         _eager)
+
+
+def _combine(stats, n_pts: int, use_centered: bool):
+    """K3's per-frame rows -> the metric tuple of the per-cut path.  Max,
+    min and count are exact; the sum is float64 and divided once, as
+    metrics.batch_mean does, so the mean matches it up to a double-rounding
+    tie.  The max error is exact too: rounding is monotone, so
+    max|err - m| = max(mx - m, m - mn)."""
+    s = stats[..., 0].sum(-1)
+    mx = stats[..., 1].amax(-1).to(torch.float32)
+    mn = stats[..., 2].amin(-1).to(torch.float32)
+    bad = stats[..., 3].sum(-1).to(torch.float32)
+    m = (s / n_pts).to(torch.float32)
+    maxe = (torch.maximum(mx - m, m - mn) if use_centered
+            else torch.maximum(mx, -mn))
+    # The float32 steps of metrics.error_quantile on an exact count.
+    return maxe, 1.0 - bad / n_pts, m
+
+
+def _core_head(c: _CoreSettings, st: dict) -> dict:
+    """Range, K1, the base search, the base reconstruction at the chosen
+    cut, ``skip_residual`` and the residual's range."""
+    x = st["x"]
     b, d0, h, w = x.shape
-    mult = 1 << max(base_levels, res_levels)
-    bq_target = float(np.float32(base_quantile_target))
+    mult = 1 << max(c.base_levels, c.res_levels)
+    minval, maxval = ((st["minval"], st["maxval"]) if "minval" in st
+                      else metrics.minmax(x))
 
     # ---- per-chunk range & const detection ----
     const = minval == maxval
     rng = torch.where(const, 1.0, maxval - minval)
     # Absolute target per chunk (reference :206-208, REL->ABS).
-    if isinstance(error_target, torch.Tensor):
-        target = error_target
+    if isinstance(c.error_target, torch.Tensor):
+        target = c.error_target
     else:
-        error_target = float(np.float32(error_target))
-        target = ((maxval - minval) * error_target if relative_mode
-                  else torch.full_like(minval, error_target))
+        target = ((maxval - minval) * c.error_target if c.relative_mode
+                  else torch.full_like(minval, c.error_target))
     # Feasibility is verified at target minus the decoder allowance, unless
     # that would eat more than half the target (reference :217-220).
     base_t = torch.clamp(target, min=0.0)
@@ -182,8 +285,7 @@ def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
     up, orig_hw = dwt.pad_to_multiple(u, mult)
 
     # ---- base layer transform + quantize (K1) ----
-    qbase = dwt_hopper.dwt2d_quantize(up.contiguous(), base_levels)
-    hp, wp = qbase.shape[-2], qbase.shape[-1]
+    qbase = dwt_hopper.dwt2d_quantize(up.contiguous(), c.base_levels)
 
     scale_back = _b4(rng) / BASE_SCALE
     off = _b4(minval)
@@ -191,226 +293,258 @@ def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
     def base_metrics(rec_spatial, cut):
         recon = dwt.unpad(rec_spatial, orig_hw) * scale_back + off
         maxe_c, m = metrics.centered_max_abs_error(x, recon)
-        maxe = maxe_c if use_centered else metrics.max_abs_error(x, recon)
+        maxe = maxe_c if c.use_centered else metrics.max_abs_error(x, recon)
         qt = metrics.error_quantile(x, recon, target)
         return maxe, qt, m
 
     # Fused curve sweep (reference :260-294): K3's per-frame rows combine
-    # into the metric tuples of the per-cut path.  Max, min and count are
-    # exact; the sum is float64 and divided once, as metrics.batch_mean
-    # does, so the mean matches it up to a double-rounding tie.  The max
-    # error is exact too: rounding is monotone, so max|err - m| =
-    # max(mx - m, m - mn).
-    n_pts = d0 * h * w
-    use_curve = os.environ.get("EBCC_FUSED_CURVE", "0") == "1"
-
-    def _combine(stats):
-        s = stats[..., 0].sum(-1)
-        mx = stats[..., 1].amax(-1).to(torch.float32)
-        mn = stats[..., 2].amin(-1).to(torch.float32)
-        bad = stats[..., 3].sum(-1).to(torch.float32)
-        m = (s / n_pts).to(torch.float32)
-        maxe = (torch.maximum(mx - m, m - mn) if use_centered
-                else torch.maximum(mx, -mn))
-        # The float32 steps of metrics.error_quantile on an exact count.
-        return maxe, 1.0 - bad / n_pts, m
-
+    # into the metric tuples of the per-cut path.
     base_curve = None
-    if use_curve:
+    if c.use_curve:
         xpad = dwt.pad_to_multiple(x, mult)[0].contiguous()
         scale_v = rng / BASE_SCALE
 
         def base_curve(cut_grid):
             return _combine(dwt_hopper.curve_stats(
-                qbase, xpad, scale_v, minval, target, levels=base_levels,
-                cut_grid=cut_grid, valid_hw=orig_hw))
+                qbase, xpad, scale_v, minval, target, levels=c.base_levels,
+                cut_grid=cut_grid, valid_hw=orig_hw), d0 * h * w,
+                c.use_centered)
 
     # Two criteria share one coarse sweep: the quantile target and the full
     # bound (pure-base candidate).
+    bq_target = c.bq_target
     [(base_cut, _, base_m), (pure_cut, pure_feasible, pure_m)], \
         base_coarse, _cc = _coarse_fine_search(
-            qbase, BASE_NUM_PLANES, base_levels, base_metrics,
+            qbase, BASE_NUM_PLANES, c.base_levels, base_metrics,
             [lambda m: m[1] >= bq_target, lambda m: m[0] <= target],
             curve_fn=base_curve)
 
+    hp, wp = qbase.shape[-2], qbase.shape[-1]
     base_sizes = bitplane.estimated_code_bytes(
         qbase.reshape(b, d0 * hp, wp), BASE_NUM_PLANES)
 
     # ---- base reconstruction at the chosen cut ----
-    base_spatial = dwt_hopper.idwt2d_dequant(qbase, base_cut, base_levels)
+    base_spatial = dwt_hopper.idwt2d_dequant(qbase, base_cut, c.base_levels)
     base_recon = dwt.unpad(base_spatial, orig_hw) * scale_back + off
     residual = x - base_recon
     base_maxerr = metrics.max_abs_error(x, base_recon)
     skip_residual = base_maxerr <= target
 
-    # ---- residual layer with the fractional-scale sweep ----
+    # ---- the residual's range ----
     rmin = residual.amin(dim=(1, 2, 3))
     rmax = residual.amax(dim=(1, 2, 3))
     rrng = torch.where(rmax > rmin, rmax - rmin, 1.0)
-    res_off = _b4(rmin)
+    return {"minval": minval, "maxval": maxval, "const": const, "rng": rng,
+            "target": target, "qbase": qbase, "off": off,
+            "base_cut": base_cut, "base_m0": base_m[0],
+            "base_m2": base_m[2], "pure_cut": pure_cut,
+            "pure_feasible": pure_feasible, "pure_m0": pure_m[0],
+            "pure_m2": pure_m[2], "base_quantiles": base_coarse[1],
+            "base_sizes": base_sizes, "base_recon": base_recon,
+            "residual": residual, "base_maxerr": base_maxerr,
+            "skip_residual": skip_residual, "rmin": rmin, "rrng": rrng}
 
-    def residual_sweep():
-        rn = (residual - res_off) / _b4(rrng) * RES_SCALE
-        rnp_, _ = dwt.pad_to_multiple(rn, mult)
-        yres = dwt_hopper.dwt2d_transform(rnp_.contiguous(), res_levels)
-        res_pad = (dwt.pad_to_multiple(residual, mult)[0].contiguous()
-                   if use_curve else None)
-        maxe_l, mean_l, cut_l, feas_l, est_l, rmax_adj_l, qres_l = (
-            [], [], [], [], [], [], [])
-        for f in RES_SCALE_STEPS:
-            q_f = bitplane.quantize_floor(yres * f)
-            qres_l.append(q_f)
-            # Mirror the decoder: it reads the stored f32 rmax_adj and
-            # computes (rmax_adj - rmin) / RES_SCALE.
-            rmax_adj = rmin + rrng / f
-            sb = _b4(rmax_adj - rmin) / RES_SCALE
-            rmax_adj_l.append(rmax_adj)
 
-            def res_metrics(rec_spatial, cut, sb=sb):
-                recon = base_recon + (dwt.unpad(rec_spatial, orig_hw) * sb
-                                      + res_off)
-                maxe_c, m = metrics.centered_max_abs_error(x, recon)
-                maxe = (maxe_c if use_centered
-                        else metrics.max_abs_error(x, recon))
-                return maxe, m
-
-            res_curve = None
-            if use_curve:
-                # The reference's formulation (:373-390): the residual is
-                # the target frame, err = res - (rec * sb + rmin), which can
-                # differ from res_metrics' x - (base_recon + ...) in the
-                # last ulp.
-                sb_v = (rmax_adj - rmin) / RES_SCALE
-
-                def res_curve(cut_grid, q_f=q_f, sb_v=sb_v):
-                    maxe, _q, m = _combine(dwt_hopper.curve_stats(
-                        q_f, res_pad, sb_v, rmin, target, levels=res_levels,
-                        cut_grid=cut_grid, valid_hw=orig_hw))
-                    return maxe, m
-
-            [(cut_f, feas_f, (maxe_f, mean_f))], _, _ = _coarse_fine_search(
-                q_f, RES_NUM_PLANES, res_levels, res_metrics,
-                [lambda m: m[0] <= target], curve_fn=res_curve)
-            est_f = bitplane.estimated_code_bytes(
-                q_f.reshape(b, d0 * hp, wp), RES_NUM_PLANES)
-            maxe_l.append(maxe_f)
-            mean_l.append(mean_f)
-            est_l.append(_take(est_f, cut_f))
-            cut_l.append(cut_f)
-            feas_l.append(feas_f)
-
-        res_maxe_f = torch.stack(maxe_l)      # (Nf, B) at each f's cut
-        res_mean_f = torch.stack(mean_l)
-        res_cut_f = torch.stack(cut_l)
-        res_feas_f = torch.stack(feas_l)
-        res_est_f = torch.stack(est_l)
-        rmax_adj_f = torch.stack(rmax_adj_l)
-
-        # Among feasible scales pick the smallest estimated coded size.
-        f_idx = torch.where(res_feas_f, res_est_f, 3.4e38).argmin(dim=0)
-        sel = lambda arr: _take(arr, f_idx)
-        ar = torch.arange(b, device=x.device)
-        best_q = torch.stack(qres_l)[f_idx, ar]
-        del qres_l
-
-        # ---- post-selection scale refinement (reference :417-519) ----
-        f_grid = torch.tensor(RES_SCALE_STEPS, dtype=torch.float32,
-                              device=x.device)
-        f_sel = f_grid[f_idx]
-        cut_sel = sel(res_cut_f).to(torch.int32)
-        any_feas = res_feas_f.any(dim=0)
-        best_maxe, best_mean = sel(res_maxe_f), sel(res_mean_f)
-        best_rmax, best_est = sel(rmax_adj_f), sel(res_est_f)
-        adopted = torch.zeros((b,), dtype=torch.bool, device=x.device)
-        for r in RES_REFINE_RATIOS:                  # coarsest first
-            f_r = f_sel / r
-            q_r = bitplane.quantize_floor(yres * _b4(f_r))
-            rmax_r = rmin + rrng / f_r
-            sb_r = _b4(rmax_r - rmin) / RES_SCALE
-            spatial_r = dwt_hopper.idwt2d_dequant(q_r, cut_sel, res_levels)
-            recon_r = base_recon + (dwt.unpad(spatial_r, orig_hw) * sb_r
-                                    + res_off)
-            maxe_c_r, mean_r = metrics.centered_max_abs_error(x, recon_r)
-            maxe_r = (maxe_c_r if use_centered
-                      else metrics.max_abs_error(x, recon_r))
-            feas_r = (maxe_r <= target) & any_feas & ~adopted
-            est_tab = bitplane.estimated_code_bytes(
-                q_r.reshape(b, d0 * hp, wp), RES_NUM_PLANES)
-            est_r = _take(est_tab, cut_sel)
-            best_q = torch.where(_b4(feas_r), q_r, best_q)
-            best_maxe = torch.where(feas_r, maxe_r, best_maxe)
-            best_mean = torch.where(feas_r, mean_r, best_mean)
-            best_rmax = torch.where(feas_r, rmax_r, best_rmax)
-            best_est = torch.where(feas_r, est_r, best_est)
-            adopted |= feas_r
-        return (cut_sel, any_feas, best_maxe, best_mean, best_rmax,
-                best_est, best_q)
-
-    def residual_trivial():
-        zero = torch.zeros((b,), dtype=torch.float32, device=x.device)
-        return (torch.full((b,), RES_NUM_PLANES - 1, dtype=torch.int32,
-                           device=x.device),
-                torch.ones((b,), dtype=torch.bool, device=x.device),
-                zero, zero, rmin + rrng, zero,
-                torch.zeros((b, d0, hp, wp), dtype=torch.int32,
-                            device=x.device))
-
-    # When every chunk's base layer already meets the bound the sweep is
-    # dead work (the reference's lax.cond at :530-532).
-    (res_cut, res_feasible, res_maxerr_sel, res_mean_sel, rmax_out,
-     res_sizes, qres) = (residual_trivial() if bool(skip_residual.all())
-                         else residual_sweep())
-
+def _residual_flags(st: dict, res: dict) -> dict:
+    """The tail of both residual segments: ``overflow`` and the chunks the
+    base-scale bisection may refine."""
+    qbase, qres = st["qbase"], res["qres"]
+    skip_residual = st["skip_residual"]
     overflow = ((qbase.abs().amax(dim=(1, 2, 3)) >= (1 << BASE_NUM_PLANES))
                 | (qres.abs().amax(dim=(1, 2, 3)) >= (1 << RES_NUM_PLANES)))
+    ship_pure_only = (~skip_residual) & (~res["res_feasible"])
+    refinable = (skip_residual | ship_pure_only) & (~st["const"])
+    return {**res, "overflow": overflow, "ship_pure_only": ship_pure_only,
+            "refinable": refinable}
 
-    # ---- base-scale bisection for base-only chunks (reference :538-691) --
-    ship_pure_only = (~skip_residual) & (~res_feasible)
-    refinable = (skip_residual | ship_pure_only) & (~const)
-    cut_ship_ref = torch.where(skip_residual, base_cut, pure_cut)
+
+def _core_sweep(c: _CoreSettings, st: dict) -> dict:
+    """The residual layer with the fractional-scale sweep and the
+    post-selection refinement."""
+    x, residual, target = st["x"], st["residual"], st["target"]
+    base_recon, rmin, rrng = st["base_recon"], st["rmin"], st["rrng"]
+    b, d0, h, w = x.shape
+    mult = 1 << max(c.base_levels, c.res_levels)
+    orig_hw = (h, w)
+    res_levels = c.res_levels
+    res_off = _b4(rmin)
+
+    rn = (residual - res_off) / _b4(rrng) * RES_SCALE
+    rnp_, _ = dwt.pad_to_multiple(rn, mult)
+    yres = dwt_hopper.dwt2d_transform(rnp_.contiguous(), res_levels)
+    hp, wp = yres.shape[-2], yres.shape[-1]
+    res_pad = (dwt.pad_to_multiple(residual, mult)[0].contiguous()
+               if c.use_curve else None)
+    maxe_l, mean_l, cut_l, feas_l, est_l, rmax_adj_l, qres_l = (
+        [], [], [], [], [], [], [])
+    for f in RES_SCALE_STEPS:
+        q_f = bitplane.quantize_floor(yres * f)
+        qres_l.append(q_f)
+        # Mirror the decoder: it reads the stored f32 rmax_adj and
+        # computes (rmax_adj - rmin) / RES_SCALE.
+        rmax_adj = rmin + rrng / f
+        sb = _b4(rmax_adj - rmin) / RES_SCALE
+        rmax_adj_l.append(rmax_adj)
+
+        def res_metrics(rec_spatial, cut, sb=sb):
+            recon = base_recon + (dwt.unpad(rec_spatial, orig_hw) * sb
+                                  + res_off)
+            maxe_c, m = metrics.centered_max_abs_error(x, recon)
+            maxe = (maxe_c if c.use_centered
+                    else metrics.max_abs_error(x, recon))
+            return maxe, m
+
+        res_curve = None
+        if c.use_curve:
+            # The reference's formulation (:373-390): the residual is
+            # the target frame, err = res - (rec * sb + rmin), which can
+            # differ from res_metrics' x - (base_recon + ...) in the
+            # last ulp.
+            sb_v = (rmax_adj - rmin) / RES_SCALE
+
+            def res_curve(cut_grid, q_f=q_f, sb_v=sb_v):
+                maxe, _q, m = _combine(dwt_hopper.curve_stats(
+                    q_f, res_pad, sb_v, rmin, target, levels=res_levels,
+                    cut_grid=cut_grid, valid_hw=orig_hw), d0 * h * w,
+                    c.use_centered)
+                return maxe, m
+
+        [(cut_f, feas_f, (maxe_f, mean_f))], _, _ = _coarse_fine_search(
+            q_f, RES_NUM_PLANES, res_levels, res_metrics,
+            [lambda m: m[0] <= target], curve_fn=res_curve)
+        est_f = bitplane.estimated_code_bytes(
+            q_f.reshape(b, d0 * hp, wp), RES_NUM_PLANES)
+        maxe_l.append(maxe_f)
+        mean_l.append(mean_f)
+        est_l.append(_take(est_f, cut_f))
+        cut_l.append(cut_f)
+        feas_l.append(feas_f)
+
+    res_maxe_f = torch.stack(maxe_l)      # (Nf, B) at each f's cut
+    res_mean_f = torch.stack(mean_l)
+    res_cut_f = torch.stack(cut_l)
+    res_feas_f = torch.stack(feas_l)
+    res_est_f = torch.stack(est_l)
+    rmax_adj_f = torch.stack(rmax_adj_l)
+
+    # Among feasible scales pick the smallest estimated coded size.
+    f_idx = torch.where(res_feas_f, res_est_f, 3.4e38).argmin(dim=0)
+    sel = lambda arr: _take(arr, f_idx)
+    ar = torch.arange(b, device=x.device)
+    best_q = torch.stack(qres_l)[f_idx, ar]
+    del qres_l
+
+    # ---- post-selection scale refinement (reference :417-519) ----
+    f_grid = constant(RES_SCALE_STEPS, torch.float32, x.device)
+    f_sel = f_grid[f_idx]
+    cut_sel = sel(res_cut_f).to(torch.int32)
+    any_feas = res_feas_f.any(dim=0)
+    best_maxe, best_mean = sel(res_maxe_f), sel(res_mean_f)
+    best_rmax, best_est = sel(rmax_adj_f), sel(res_est_f)
+    adopted = torch.zeros((b,), dtype=torch.bool, device=x.device)
+    for r in RES_REFINE_RATIOS:                  # coarsest first
+        f_r = f_sel / r
+        q_r = bitplane.quantize_floor(yres * _b4(f_r))
+        rmax_r = rmin + rrng / f_r
+        sb_r = _b4(rmax_r - rmin) / RES_SCALE
+        spatial_r = dwt_hopper.idwt2d_dequant(q_r, cut_sel, res_levels)
+        recon_r = base_recon + (dwt.unpad(spatial_r, orig_hw) * sb_r
+                                + res_off)
+        maxe_c_r, mean_r = metrics.centered_max_abs_error(x, recon_r)
+        maxe_r = (maxe_c_r if c.use_centered
+                  else metrics.max_abs_error(x, recon_r))
+        feas_r = (maxe_r <= target) & any_feas & ~adopted
+        est_tab = bitplane.estimated_code_bytes(
+            q_r.reshape(b, d0 * hp, wp), RES_NUM_PLANES)
+        est_r = _take(est_tab, cut_sel)
+        best_q = torch.where(_b4(feas_r), q_r, best_q)
+        best_maxe = torch.where(feas_r, maxe_r, best_maxe)
+        best_mean = torch.where(feas_r, mean_r, best_mean)
+        best_rmax = torch.where(feas_r, rmax_r, best_rmax)
+        best_est = torch.where(feas_r, est_r, best_est)
+        adopted |= feas_r
+    return _residual_flags(st, {
+        "res_cut": cut_sel, "res_feasible": any_feas,
+        "res_maxerr": best_maxe, "res_mean": best_mean, "rmax": best_rmax,
+        "res_sizes": best_est, "qres": best_q})
+
+
+def _core_trivial(c: _CoreSettings, st: dict) -> dict:
+    """The residual layer of a batch whose every chunk skips it."""
+    qbase = st["qbase"]
+    b = qbase.shape[0]
+    dev = qbase.device
+    zero = torch.zeros((b,), dtype=torch.float32, device=dev)
+    return _residual_flags(st, {
+        "res_cut": torch.full((b,), RES_NUM_PLANES - 1, dtype=torch.int32,
+                              device=dev),
+        "res_feasible": torch.ones((b,), dtype=torch.bool, device=dev),
+        "res_maxerr": zero, "res_mean": zero,
+        "rmax": st["rmin"] + st["rrng"], "res_sizes": zero,
+        "qres": torch.zeros(qbase.shape, dtype=torch.int32, device=dev)})
+
+
+def _core_refine(c: _CoreSettings, st: dict) -> dict:
+    """Base-scale bisection for base-only chunks (reference :538-691).
+    Returns the shipped base layer under the head's names: ``qbase``,
+    ``maxval``, ``base_maxerr`` and the base and pure metrics, each
+    replaced where a chunk adopted a scale."""
+    x, qbase, target = st["x"], st["qbase"], st["target"]
+    minval, rng, off = st["minval"], st["rng"], st["off"]
+    skip_residual, refinable = st["skip_residual"], st["refinable"]
+    ship_pure_only = st["ship_pure_only"]
+    b, d0, h, w = x.shape
+    orig_hw = (h, w)
     qbase_ship = qbase
-    maxval_ship = maxval
-    base_maxerr_out = base_maxerr
-    base_m0, base_m2 = base_m[0], base_m[2]
-    pure_m0, pure_m2 = pure_m[0], pure_m[2]
-    # Host-side branch in place of the reference's lax.cond at :649-651:
-    # with no refinable chunk no candidate could be adopted.
-    if bool(refinable.any()):
-        cut4s = _b4(cut_ship_ref)
-        vmag_f = (qbase.abs() >> cut4s).to(torch.float32)  # exact in f32
-        sgn_neg = qbase < 0
-        g_lo = torch.ones((b,), dtype=torch.float32, device=x.device)
-        g_hi = torch.full((b,), 2.0, dtype=torch.float32, device=x.device)
-        for _ in range(BASE_REFINE_ITERS):
-            gf = 0.5 * (g_lo + g_hi)
-            # 1/g and rng*g are rounded as separate steps (the reference
-            # pins this with optimization_barrier, :600 and :608); eager
-            # PyTorch runs and rounds each op on its own.
-            inv_g = torch.reciprocal(gf)
-            vmag_g = torch.floor((vmag_f + 0.5) * _b4(inv_g)).to(torch.int32)
-            q_g = torch.where(sgn_neg, -(vmag_g << cut4s), vmag_g << cut4s)
-            maxval_g = minval + rng * gf
-            sb_g = _b4((maxval_g - minval) / BASE_SCALE)
-            recon_g = (dwt.unpad(dwt_hopper.idwt2d_dequant(
-                q_g, cut_ship_ref, base_levels), orig_hw) * sb_g + off)
-            maxe_c_g, mean_g = metrics.centered_max_abs_error(x, recon_g)
-            maxe_u_g = metrics.max_abs_error(x, recon_g)
-            crit_pure = maxe_c_g if use_centered else maxe_u_g
-            crit_g = torch.where(skip_residual, maxe_u_g, crit_pure)
-            feas_g = (crit_g <= target) & refinable
-            g_lo = torch.where(feas_g, gf, g_lo)
-            g_hi = torch.where(feas_g, g_hi, gf)
-            qbase_ship = torch.where(_b4(feas_g), q_g, qbase_ship)
-            maxval_ship = torch.where(feas_g, maxval_g, maxval_ship)
-            upd_b = feas_g & skip_residual
-            base_maxerr_out = torch.where(upd_b, maxe_u_g, base_maxerr_out)
-            base_m0 = torch.where(upd_b, crit_pure, base_m0)
-            base_m2 = torch.where(upd_b, mean_g, base_m2)
-            upd_p = feas_g & ship_pure_only
-            pure_m0 = torch.where(upd_p, crit_pure, pure_m0)
-            pure_m2 = torch.where(upd_p, mean_g, pure_m2)
+    maxval_ship = st["maxval"]
+    base_maxerr_out = st["base_maxerr"]
+    base_m0, base_m2 = st["base_m0"], st["base_m2"]
+    pure_m0, pure_m2 = st["pure_m0"], st["pure_m2"]
+    cut_ship_ref = torch.where(skip_residual, st["base_cut"], st["pure_cut"])
+    cut4s = _b4(cut_ship_ref)
+    vmag_f = (qbase.abs() >> cut4s).to(torch.float32)  # exact in f32
+    sgn_neg = qbase < 0
+    g_lo = torch.ones((b,), dtype=torch.float32, device=x.device)
+    g_hi = torch.full((b,), 2.0, dtype=torch.float32, device=x.device)
+    for _ in range(BASE_REFINE_ITERS):
+        gf = 0.5 * (g_lo + g_hi)
+        # 1/g and rng*g are rounded as separate steps (the reference
+        # pins this with optimization_barrier, :600 and :608); eager
+        # PyTorch runs and rounds each op on its own.
+        inv_g = torch.reciprocal(gf)
+        vmag_g = torch.floor((vmag_f + 0.5) * _b4(inv_g)).to(torch.int32)
+        q_g = torch.where(sgn_neg, -(vmag_g << cut4s), vmag_g << cut4s)
+        maxval_g = minval + rng * gf
+        sb_g = _b4((maxval_g - minval) / BASE_SCALE)
+        recon_g = (dwt.unpad(dwt_hopper.idwt2d_dequant(
+            q_g, cut_ship_ref, c.base_levels), orig_hw) * sb_g + off)
+        maxe_c_g, mean_g = metrics.centered_max_abs_error(x, recon_g)
+        maxe_u_g = metrics.max_abs_error(x, recon_g)
+        crit_pure = maxe_c_g if c.use_centered else maxe_u_g
+        crit_g = torch.where(skip_residual, maxe_u_g, crit_pure)
+        feas_g = (crit_g <= target) & refinable
+        g_lo = torch.where(feas_g, gf, g_lo)
+        g_hi = torch.where(feas_g, g_hi, gf)
+        qbase_ship = torch.where(_b4(feas_g), q_g, qbase_ship)
+        maxval_ship = torch.where(feas_g, maxval_g, maxval_ship)
+        upd_b = feas_g & skip_residual
+        base_maxerr_out = torch.where(upd_b, maxe_u_g, base_maxerr_out)
+        base_m0 = torch.where(upd_b, crit_pure, base_m0)
+        base_m2 = torch.where(upd_b, mean_g, base_m2)
+        upd_p = feas_g & ship_pure_only
+        pure_m0 = torch.where(upd_p, crit_pure, pure_m0)
+        pure_m2 = torch.where(upd_p, mean_g, pure_m2)
+    return {"qbase": qbase_ship, "maxval": maxval_ship,
+            "base_maxerr": base_maxerr_out, "base_m0": base_m0,
+            "base_m2": base_m2, "pure_m0": pure_m0, "pure_m2": pure_m2}
 
-    # ---- exchange values (reference :693-707) ----
+
+def _core_outputs(c: _CoreSettings, st: dict) -> dict:
+    """The exchange values (reference :693-707) and the small outputs."""
+    qbase_ship, qres = st["qbase"], st["qres"]
+    skip_residual, res_feasible = st["skip_residual"], st["res_feasible"]
+    base_cut, pure_cut, res_cut = (st["base_cut"], st["pure_cut"],
+                                   st["res_cut"])
     # Base kept-values at the deepest cut any candidate can need; residual
     # kept-values at res_cut, zeroed for chunks without a residual layer.
     store_cut = torch.minimum(pure_cut, base_cut)
@@ -424,42 +558,45 @@ def _encode_core(x, minval, maxval, error_target, base_quantile_target, *,
     vr = torch.where(res_active, vr, 0)
 
     small = {
-        "minval": minval, "maxval": maxval_ship, "const": const,
-        "overflow": overflow,
-        "target_abs": target,
+        "minval": st["minval"], "maxval": st["maxval"],
+        "const": st["const"], "overflow": st["overflow"],
+        "target_abs": st["target"],
         "store_cut": store_cut,
         "base_cut": base_cut, "pure_cut": pure_cut,
-        "pure_feasible": pure_feasible,
-        "base_est_sizes": base_sizes,
-        "base_quantiles": base_coarse[1],  # (n_coarse, B), coarse cut grid
-        "pure_maxerr": pure_m0,
-        "pure_mean": pure_m2,
+        "pure_feasible": st["pure_feasible"],
+        "base_est_sizes": st["base_sizes"],
+        "base_quantiles": st["base_quantiles"],  # (n_coarse, B), coarse grid
+        "pure_maxerr": st["pure_m0"],
+        "pure_mean": st["pure_m2"],
         "skip_residual": skip_residual,
-        "base_maxerr": base_maxerr_out,
-        "base_maxerr_centered": base_m0,
-        "base_mean": base_m2,
-        "rmin": rmin, "rmax": rmax_out,
+        "base_maxerr": st["base_maxerr"],
+        "base_maxerr_centered": st["base_m0"],
+        "base_mean": st["base_m2"],
+        "rmin": st["rmin"], "rmax": st["rmax"],
         "res_cut": res_cut, "res_feasible": res_feasible,
-        "res_maxerr": res_maxerr_sel,
-        "res_mean": res_mean_sel,
-        "res_est_size": res_sizes,  # (B,) at the selected (scale, cut)
+        "res_maxerr": st["res_maxerr"],
+        "res_mean": st["res_mean"],
+        "res_est_size": st["res_sizes"],  # (B,) at the selected (scale, cut)
     }
-    if not return_internal:
+    if not c.return_internal:
         small.update(_exchange_outputs((vb, vr)))
         return small
 
     # The shipped candidate as a decoder rebuilds it (_decode_from_qflat's
     # layer arithmetic; K2 masks at the cut, so the integers before the
     # shift to the kept values give the same spatial field).
+    h, w = st["x"].shape[-2:]
+    minval, rmin, rmax_out = st["minval"], st["rmin"], st["rmax"]
     cut_ship = torch.where((~skip_residual) & (~res_feasible), pure_cut,
                            base_cut)
-    rng_ship = torch.where(const, 1.0, maxval_ship - minval)
-    spat_b = dwt_hopper.idwt2d_dequant(qbase_ship, cut_ship, base_levels)
-    recon_b = dwt.unpad(spat_b, orig_hw) * _b4(rng_ship / BASE_SCALE) + off
+    rng_ship = torch.where(st["const"], 1.0, st["maxval"] - minval)
+    spat_b = dwt_hopper.idwt2d_dequant(qbase_ship, cut_ship, c.base_levels)
+    recon_b = (dwt.unpad(spat_b, (h, w)) * _b4(rng_ship / BASE_SCALE)
+               + st["off"])
     rrng_out = torch.where(rmax_out > rmin, rmax_out - rmin, 1.0)
-    spat_r = dwt_hopper.idwt2d_dequant(qres, res_cut, res_levels)
-    res_rec = (dwt.unpad(spat_r, orig_hw) * _b4(rrng_out / RES_SCALE)
-               + res_off)
+    spat_r = dwt_hopper.idwt2d_dequant(qres, res_cut, c.res_levels)
+    res_rec = (dwt.unpad(spat_r, (h, w)) * _b4(rrng_out / RES_SCALE)
+               + _b4(rmin))
     small["_recon"] = recon_b + torch.where(res_active, res_rec, 0.0)
     small["_vb"] = vb
     small["_vr"] = vr
@@ -636,8 +773,7 @@ def _temporal_step(x_t, recon, target, mult: int, res_levels: int):
 
     # Post-selection refinement at the chosen cut (reference :983-1048):
     # adopt the coarsest sub-grid scale still feasible.
-    f_grid = torch.tensor(RES_SCALE_STEPS, dtype=torch.float32,
-                          device=x_t.device)
+    f_grid = constant(RES_SCALE_STEPS, torch.float32, x_t.device)
     fv_sel = f_dyn * f_grid[f_idx]
     any_feas = feas_s.any(dim=0)
     adopted = torch.zeros((b,), dtype=torch.bool, device=x_t.device)

@@ -300,10 +300,16 @@ void launch_counts(const int32_t* q, int groups, long long n, Plan pl,
 // Kernels launched since the library was loaded, so a caller counts the
 // launches of one call without a profiler.
 std::atomic<long long> g_launched{0};
+// The same count for the calling thread alone: a thread that captures a
+// CUDA graph counts the launches it recorded while other threads launch.
+thread_local long long t_launched = 0;
 
 int launched() {
   const int err = (int)cudaGetLastError();
-  if (!err) g_launched.fetch_add(1, std::memory_order_relaxed);
+  if (!err) {
+    g_launched.fetch_add(1, std::memory_order_relaxed);
+    ++t_launched;
+  }
   return err;
 }
 
@@ -314,6 +320,15 @@ extern "C" {
 // Kernels this library has launched since it was loaded.
 long long ebcc_bitplane_kernels_launched() {
   return g_launched.load(std::memory_order_relaxed);
+}
+
+// Kernels this library has launched from the calling thread.
+long long ebcc_bitplane_thread_launched() { return t_launched; }
+
+// Adds n to the library's count: the kernels of a CUDA graph replay, which
+// run again without passing through this library's launch sites.
+void ebcc_bitplane_add_launched(long long n) {
+  g_launched.fetch_add(n, std::memory_order_relaxed);
 }
 
 // uint32 partials ebcc_code_size_stats needs for (groups, n) on a device

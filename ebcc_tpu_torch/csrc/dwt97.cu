@@ -850,11 +850,17 @@ __global__ void curve_reduce(const double* p_sum, const float* p_mx,
 // Kernels launched since the library was loaded, so a caller counts the
 // launches of one call without a profiler.
 std::atomic<long long> g_launched{0};
+// The same count for the calling thread alone: a thread that captures a
+// CUDA graph counts the launches it recorded while other threads launch.
+thread_local long long t_launched = 0;
 
 // The error of the launch just made, counted when it went out.
 int launched() {
   const int err = (int)cudaGetLastError();
-  if (!err) g_launched.fetch_add(1, std::memory_order_relaxed);
+  if (!err) {
+    g_launched.fetch_add(1, std::memory_order_relaxed);
+    ++t_launched;
+  }
   return err;
 }
 
@@ -958,6 +964,15 @@ long long ebcc_curve_scratch_floats(int n_cuts, int n_frames, int hp,
 // Kernels this library has launched since it was loaded.
 long long ebcc_kernels_launched() {
   return g_launched.load(std::memory_order_relaxed);
+}
+
+// Kernels this library has launched from the calling thread.
+long long ebcc_thread_launched() { return t_launched; }
+
+// Adds n to the library's count: the kernels of a CUDA graph replay, which
+// run again without passing through this library's launch sites.
+void ebcc_add_launched(long long n) {
+  g_launched.fetch_add(n, std::memory_order_relaxed);
 }
 
 // Cuts per group of ebcc_curve_stats' launches.

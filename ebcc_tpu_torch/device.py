@@ -8,6 +8,8 @@ the CPU path.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 
@@ -23,3 +25,22 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+_CONSTANTS: dict = {}
+_CONSTANTS_LOCK = threading.Lock()
+
+
+def constant(values, dtype, device) -> torch.Tensor:
+    """A tensor of host ``values`` on ``device``, uploaded once per
+    (values, dtype, device) and shared by every caller, who must not write
+    it.  A fresh upload per call would synchronise the host with the stream,
+    and a stream that captures a CUDA graph takes none (a missing constant
+    raises there)."""
+    key = (tuple(values), dtype, str(device))
+    with _CONSTANTS_LOCK:
+        t = _CONSTANTS.get(key)
+        if t is None:
+            t = _CONSTANTS[key] = torch.tensor(key[0], dtype=dtype,
+                                               device=device)
+        return t

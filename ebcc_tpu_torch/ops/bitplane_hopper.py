@@ -27,8 +27,8 @@ import threading
 
 import torch
 
-from . import _build
-from .dwt_hopper import LaunchCounter
+from . import _build, bitplane
+from .dwt_hopper import LaunchCounter, ReplayedCall, note_call
 
 LAUNCHES = {"code_size_stats": LaunchCounter()}
 
@@ -57,6 +57,10 @@ def _lib():
             lib.ebcc_code_size_partials.restype = ll
             lib.ebcc_bitplane_kernels_launched.argtypes = []
             lib.ebcc_bitplane_kernels_launched.restype = ll
+            lib.ebcc_bitplane_thread_launched.argtypes = []
+            lib.ebcc_bitplane_thread_launched.restype = ll
+            lib.ebcc_bitplane_add_launched.argtypes = [ll]
+            lib.ebcc_bitplane_add_launched.restype = None
             lib._ebcc_sigs = True
     return lib
 
@@ -67,10 +71,25 @@ def cuda_kernels_launched() -> int:
     return _lib().ebcc_bitplane_kernels_launched()
 
 
+def thread_kernels_launched() -> int:
+    """The library's count of the kernels launched from this thread."""
+    return _lib().ebcc_bitplane_thread_launched()
+
+
+def add_kernels_launched(n: int) -> None:
+    """Adds ``n`` kernels that a CUDA graph replay ran to the library's
+    count."""
+    _lib().ebcc_bitplane_add_launched(n)
+
+
 def estimated_code_bytes(q, num_planes: int, zstd_efficiency: float = 1.35):
     """``(num_planes + 1, ...)`` float32 estimated coded sizes of the int32
     q over its trailing two axes, bit-equal to
-    ``bitplane.estimated_code_bytes_plain`` on the same card."""
+    ``bitplane.estimated_code_bytes_plain`` on the same card.  A
+    :class:`~.dwt_hopper.ReplayedCall` is counted and launches nothing."""
+    if isinstance(q, ReplayedCall):
+        LAUNCHES["code_size_stats"].add()
+        return None
     if q.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got {q.device}")
     if q.dtype != torch.int32:
@@ -99,4 +118,7 @@ def estimated_code_bytes(q, num_planes: int, zstd_efficiency: float = 1.35):
     if err != 0:
         raise RuntimeError(f"code size kernel: CUDA error {err}")
     LAUNCHES["code_size_stats"].add()
+    # A replay makes the call again through the estimate's entry point.
+    note_call(bitplane, "estimated_code_bytes", q, num_planes,
+              zstd_efficiency)
     return sizes.reshape((num_planes + 1,) + lead)

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import constant
+
 # Canonical CDF 9/7 lifting coefficients (Daubechies & Sweldens 1998).
 ALPHA = -1.586134342
 BETA = -0.05298011854
@@ -98,10 +100,11 @@ def idwt2d(y, levels: int):
 
 
 def _pad_index(n: int, p: int, symmetric: bool, device):
-    idx = torch.arange(n + p, device=device)
-    tail = (2 * n - 1 - idx[n:]) if symmetric else torch.full(
-        (p,), n - 1, device=device)
-    return torch.cat([idx[:n], tail])
+    """The gather index of one padded axis, made on the host and uploaded
+    once per device (a stream that captures a CUDA graph takes no upload)."""
+    tail = [2 * n - 1 - i for i in range(n, n + p)] if symmetric \
+        else [n - 1] * p
+    return constant(list(range(n)) + tail, torch.int64, device)
 
 
 def pad_to_multiple(x, multiple: int):

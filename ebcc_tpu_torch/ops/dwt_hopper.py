@@ -28,15 +28,27 @@ raises; a CPU tensor goes to the plain PyTorch version beside each wrapper
 its summation order).  Each wrapper counts its calls that launch the
 kernels (:data:`LAUNCHES`), so a run can show that the main path went
 through them.
+
+A CUDA graph that captured wrapper calls (``core/graphs.py``) replays
+their kernels without calling the wrappers.  Each wrapper notes, on a
+thread where :func:`noting_calls` is on, the call it launched, and the
+replay makes each noted call again with a :class:`ReplayedCall` in place
+of its first tensor: the wrapper then counts the call and launches
+nothing, and whatever wraps the wrapper sees the call as it saw it at
+capture.  :func:`add_kernels_launched` adds the replayed kernels to the
+library's own count.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import sys
 import threading
 
 import torch
 
+from ..device import constant
 from . import _build, bitplane
 from . import dwt as dwt_ops
 
@@ -86,6 +98,54 @@ def cuda_kernels_launched() -> int:
     return _lib().ebcc_kernels_launched()
 
 
+def thread_kernels_launched() -> int:
+    """The library's count of the kernels launched from this thread."""
+    return _lib().ebcc_thread_launched()
+
+
+def add_kernels_launched(n: int) -> None:
+    """Adds ``n`` kernels that a CUDA graph replay ran to the library's
+    count."""
+    _lib().ebcc_add_launched(n)
+
+
+class ReplayedCall:
+    """The first tensor of a wrapper call that a CUDA graph replay made
+    again: its shape, dtype and device.  A wrapper given one counts the
+    call and launches nothing."""
+
+    __slots__ = ("shape", "dtype", "device")
+
+    def __init__(self, t):
+        self.shape, self.dtype, self.device = tuple(t.shape), t.dtype, t.device
+
+
+_NOTES = threading.local()
+
+
+@contextlib.contextmanager
+def noting_calls(log: list):
+    """While on, each wrapper call on this thread that launches appends
+    ``(module, name, args, kwargs)`` to ``log``: the call to make again,
+    with a :class:`ReplayedCall` as ``args[0]``."""
+    _NOTES.log = log
+    try:
+        yield
+    finally:
+        _NOTES.log = None
+
+
+def note_call(module, name: str, t, *args, **kw) -> None:
+    """Notes a call of ``module.name`` whose first tensor was ``t``, where
+    :func:`noting_calls` is on."""
+    log = getattr(_NOTES, "log", None)
+    if log is not None:
+        log.append((module, name, (ReplayedCall(t),) + args, kw))
+
+
+_SELF = sys.modules[__name__]
+
+
 _SIG_LOCK = threading.Lock()
 
 
@@ -110,6 +170,10 @@ def _lib():
             lib.ebcc_curve_parts.restype = i
             lib.ebcc_kernels_launched.argtypes = []
             lib.ebcc_kernels_launched.restype = ctypes.c_longlong
+            lib.ebcc_thread_launched.argtypes = []
+            lib.ebcc_thread_launched.restype = ctypes.c_longlong
+            lib.ebcc_add_launched.argtypes = [ctypes.c_longlong]
+            lib.ebcc_add_launched.restype = None
             lib._ebcc_sigs = True
     return lib
 
@@ -168,10 +232,14 @@ def dwt2d_quantize_plain(x, levels: int):
 def dwt2d_quantize(x, levels: int):
     """(B, D0, Hp, Wp) float32 -> int32 coefficients truncated toward zero
     (K1).  CPU tensors take :func:`dwt2d_quantize_plain`."""
+    if isinstance(x, ReplayedCall):
+        LAUNCHES["dwt2d_quantize"].add()
+        return None
     if x.device.type == "cpu":
         return dwt2d_quantize_plain(x, levels)
     q = _forward(x, levels, quantize=True)
     LAUNCHES["dwt2d_quantize"].add()
+    note_call(_SELF, "dwt2d_quantize", x, levels)
     return q
 
 
@@ -182,10 +250,14 @@ def dwt2d_transform_plain(x, levels: int):
 def dwt2d_transform(x, levels: int):
     """(B, D0, Hp, Wp) float32 -> float32 forward transform (K1's kernel
     without the truncation).  CPU tensors take :func:`dwt2d_transform_plain`."""
+    if isinstance(x, ReplayedCall):
+        LAUNCHES["dwt2d_transform"].add()
+        return None
     if x.device.type == "cpu":
         return dwt2d_transform_plain(x, levels)
     y = _forward(x, levels, quantize=False)
     LAUNCHES["dwt2d_transform"].add()
+    note_call(_SELF, "dwt2d_transform", x, levels)
     return y
 
 
@@ -208,6 +280,9 @@ def idwt2d_dequant_plain(q, cut, levels: int):
 def idwt2d_dequant(q, cut, levels: int):
     """(B, D0, Hp, Wp) int32 + per-chunk cut (B,) (or a scalar) -> spatial
     float32 (K2).  CPU tensors take :func:`idwt2d_dequant_plain`."""
+    if isinstance(q, ReplayedCall):
+        LAUNCHES["idwt2d_dequant"].add()
+        return None
     if q.device.type == "cpu":
         return idwt2d_dequant_plain(q, cut, levels)
     lib = _check_frames(q, torch.int32, levels)
@@ -222,6 +297,7 @@ def idwt2d_dequant(q, cut, levels: int):
             b * d0, d0, hp, wp, levels, stream)
     _raise_on(err, "idwt2d dequant kernel")
     LAUNCHES["idwt2d_dequant"].add()
+    note_call(_SELF, "idwt2d_dequant", q, None, levels)
     return out
 
 
@@ -246,21 +322,6 @@ def curve_stats_plain(q, t, scale, off, target, *, levels: int, cut_grid,
             (err.abs() > _b4(target)).sum(dim=(2, 3)).to(torch.float64),
         ], dim=-1))
     return torch.stack(rows)
-
-
-_CUT_GRIDS: dict = {}
-
-
-def _cut_grid_tensor(cut_grid, device):
-    """The cut grid on the card, uploaded once per (grid, device): a fresh
-    upload per call would synchronise the host with the stream."""
-    key = (tuple(int(c) for c in cut_grid), str(device))
-    with _SIG_LOCK:
-        v = _CUT_GRIDS.get(key)
-        if v is None:
-            v = torch.tensor(key[0], dtype=torch.int32, device=device)
-            _CUT_GRIDS[key] = v
-        return v
 
 
 def _chunk_vector(v, b: int, device):
@@ -305,6 +366,9 @@ def curve_stats(q, t, scale, off, target, *, levels: int, cut_grid,
     K2 level-0 launch), the tiles' halos and overlapping segments lifting
     1.7-1.9x the samples the outputs need (``csrc/dwt97.cu``, ``PERF.md``).
     """
+    if isinstance(q, ReplayedCall):
+        LAUNCHES["curve_stats"].add()
+        return None
     if q.device.type == "cpu":
         return curve_stats_plain(q, t, scale, off, target, levels=levels,
                                  cut_grid=cut_grid, valid_hw=valid_hw)
@@ -317,7 +381,7 @@ def curve_stats(q, t, scale, off, target, *, levels: int, cut_grid,
     vh, vw = (int(v) for v in valid_hw)
     if not (0 < vh <= hp and 0 < vw <= wp):
         raise ValueError(f"valid region {valid_hw} outside ({hp}, {wp})")
-    cuts = _cut_grid_tensor(cut_grid, q.device)
+    cuts = constant([int(c) for c in cut_grid], torch.int32, q.device)
     n_cuts, n_frames = cuts.numel(), b * d0
     if n_cuts == 0:
         raise ValueError("empty cut grid")
@@ -343,4 +407,6 @@ def curve_stats(q, t, scale, off, target, *, levels: int, cut_grid,
             levels, vh, vw, stream)
     _raise_on(err, "curve stats kernel")
     LAUNCHES["curve_stats"].add()
+    note_call(_SELF, "curve_stats", q, None, None, None, None, levels=levels,
+              cut_grid=cut_grid, valid_hw=valid_hw)
     return out.reshape(n_cuts, b, d0, 4)

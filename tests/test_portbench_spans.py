@@ -25,6 +25,11 @@ READS = {"enc_device_thread_s_per_mpt": ("enc: device",),
 # request in one batch, on the request thread, so it waits for no worker
 # and the metric reads 0.0.
 READ_ZERO = {("max0.5_cr30.read8", "dec_worker_wait_s_per_mpt")}
+# Metrics of what only a CUDA tensor's encode makes, with the counters they
+# read: on the CPU the encode core runs eagerly and builds no CUDA graph, so
+# the counters never open and the metric is left out of the line.
+CARD_ONLY = {"enc_core_graph_pct": ("core: graph replays",
+                                    "core: graph captures")}
 
 
 def spans_read(name: str) -> tuple:
@@ -74,9 +79,13 @@ def test_traced_cell_reports_every_program_metric(cell, traced_cell):
     listed = [m["name"] for m in harness.load_benchmark()["per_layer"]
               if m["source"] in PROGRAM and harness.applies(m, cell)]
     assert len(listed) >= 5
-    assert not [n for n in listed if n not in r["metrics"]]
+    assert not [n for n in listed
+                if (n in r["metrics"]) == (n in CARD_ONLY)]
     stats = traced_cell[0].stats
     for name in listed:
+        if name in CARD_ONLY:
+            assert not any(c in stats for c in CARD_ONLY[name]), name
+            continue
         spans = spans_read(name)
         if (cell, name) in READ_ZERO:
             assert not any(stats.get(s, (0,))[0] for s in spans), name

@@ -190,7 +190,8 @@ def test_counter_names_are_constants():
             assert isinstance(node.args[0], ast.Constant), where
             assert isinstance(node.args[0].value, str), where
             names.add(node.args[0].value)
-    assert names == {"exch: compact pairs", "exch: index pairs"}
+    assert names == {"exch: compact pairs", "exch: index pairs",
+                     "core: graph captures", "core: graph replays"}
 
 
 def test_counter_entry_is_additions_and_sum(spans_on):
